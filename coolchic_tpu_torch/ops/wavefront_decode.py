@@ -1,0 +1,493 @@
+"""Wavefront range decode of `tpu`-profile latent grids (docs/tpu_profile.md):
+the CUDA kernel's wrapper, its plain PyTorch version, and the host packing.
+
+Replaces coolchic_tpu/ops/pallas_decode.py: the Pallas kernel `_make_kernel`
+(built and launched by `_build`, `pl.pallas_call`). Both compute the same
+function: G same-shape grids, each coded on 128 row-keyed range-coder
+streams, are decoded over D = (w-1) + (h-1)*step + 1 serial wavefronts; at
+each wavefront every stream decodes at most one pixel (y, x) with
+x + step*y = d, from its 9x9 causal context taps, the IFCE context, the
+int32 X.8 ARM and the integer Laplace CDF of bitstream/tpu_cdf.py.
+
+The kernel (csrc/wavefront_decode.cu) runs one CTA per grid and one thread
+per stream, with the coder state in native u64 registers, the last OFFMAX+1
+wavefronts in a shared-memory ring and one barrier per wavefront. What
+bounds it on an H100 is the serial chain of D dependent wavefronts (3834 at
+512x768), each a few thousand dependent integer instructions of one thread;
+the bytes it moves (words, IFCE context, output) take microseconds. This
+first design is simple on purpose: one CTA per grid leaves most of the 132
+SMs idle at G = 8, and PERF.md records its measured time beside its bound.
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from coolchic_tpu_torch.bitstream.tpu_cdf import (
+    CSL,
+    EXP2_POLY,
+    FREE_WEIGHT,
+    LEAK_STEP,
+    PRECISION,
+    SL0,
+    SYM_MAX,
+    SYM_MIN,
+)
+from coolchic_tpu_torch.core.constants import (
+    LOG_SCALE_MIN_FIXED_POINT,
+    MU_MIN_FIXED_POINT,
+    N_POSSIBLE_MU,
+    N_POSSIBLE_SCALE,
+)
+
+MASK = 9
+LANES = 128
+_M32 = 0xFFFFFFFF
+_QMAX = (1 << PRECISION) - 1
+
+# Widest ARM the kernel takes (the host C++ codec's limit too).
+MAX_ARM_DIM = 64
+# Dynamic shared memory one block may use on Hopper (sm_90).
+SMEM_LIMIT_BYTES = 232448
+
+
+def tpu_wavefront_step(w: int) -> int:
+    """Normative wavefront step of the `tpu` profile (must match the C++
+    tpu_wavefront_step, csrc/rangecoder.cpp): pixel (y, x) belongs to
+    wavefront d = x + step * y. Causality of the 9x9 mask needs step >= 5
+    (a dy = -1 tap reaches dx = +4); the 128-stream decode needs the row
+    span ceil(w / step) <= 128."""
+    return max(5, -(-w // 128))
+
+
+def _off_max(step: int) -> int:
+    """Max |row offset| of a causal tap: |dx + step*dy| <= 4 + 4*step."""
+    return 4 + 4 * step
+
+
+def n_wavefronts(h: int, w: int) -> int:
+    return (w - 1) + (h - 1) * tpu_wavefront_step(w) + 1
+
+
+def words_bucket(max_words: int) -> int:
+    """Power-of-two row count of the words buffer for the longest stream in
+    a batch."""
+    R = 64
+    while R < max_words:
+        R *= 2
+    return R
+
+
+def _tap_list(ctx_idx: np.ndarray) -> tuple:
+    """9x9 flat indices -> ((dy, dx), ...) with dy in [-4, 0]."""
+    taps = []
+    for idx in np.asarray(ctx_idx).tolist():
+        dy = idx // MASK - (MASK - 1) // 2
+        dx = idx % MASK - (MASK - 1) // 2
+        taps.append((int(dy), int(dx)))
+    return tuple(taps)
+
+
+def _kernel_dim(dim: int) -> int:
+    """The kernel's padded ARM width DP (zero weights pad it, exactly): the
+    next multiple of 4, fixed per build."""
+    if not 0 < dim <= MAX_ARM_DIM:
+        raise ValueError(f"ARM width {dim} outside the kernel's 1..{MAX_ARM_DIM}")
+    return -(-dim // 4) * 4
+
+
+def _ring_rows(w: int) -> int:
+    """Power-of-two rows of the kernel's shared-memory symbol ring (holds
+    the last OFFMAX + 1 wavefronts)."""
+    need = _off_max(tpu_wavefront_step(w)) + 1
+    r = 1
+    while r < need:
+        r *= 2
+    return r
+
+
+def kernel_smem_bytes(w: int, dim: int, n_hidden: int) -> int:
+    """Dynamic shared memory of one CTA (must match the .cu layout)."""
+    dp = _kernel_dim(dim)
+    n_int = (n_hidden * dp * dp + n_hidden * dp   # hidden weights, biases
+             + dp * 2 + 2                          # last layer
+             + dp * 2 + 2                          # stabiliser
+             + N_POSSIBLE_SCALE                    # slope table
+             + 3 * dp                              # tap offsets, dy, dx
+             + dp * LANES)                         # per-thread layer outputs
+    return 4 * n_int + _ring_rows(w) * LANES
+
+
+def kernel_eligible(h: int, w: int, dim: int, n_hidden: int) -> bool:
+    """Can a 128-stream [h, w] grid take the wavefront decode? Narrow grids
+    (w <= 9) are coded in raster order, not by wavefront; the ARM must fit
+    a kernel variant and the CTA's shared memory."""
+    return (MASK < w and dim <= MAX_ARM_DIM
+            and kernel_smem_bytes(w, dim, n_hidden) <= SMEM_LIMIT_BYTES)
+
+
+def grid_batch_limit(h: int, w: int, ifce_rows: int, R: int, G: int,
+                     device: torch.device) -> int:
+    """Largest number of grids (<= G) whose words, IFCE context and output
+    fit in half of the device's free memory (the CPU has no limit here)."""
+    if device.type != "cuda":
+        return G
+    D = n_wavefronts(h, w)
+    per_grid = 4 * LANES * (R + D * ifce_rows) + 4 * h * w
+    free, _ = torch.cuda.mem_get_info(device)
+    return max(1, min(G, int(free // 2 // per_grid)))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel: build, bind, launch.
+# ---------------------------------------------------------------------------
+_CU_SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront_decode.cu"
+
+
+class _WavefrontKernel:
+    """ctypes binding of csrc/wavefront_decode.cu, built with nvcc at first
+    use, one library per padded ARM width. `launches` counts kernel
+    launches (and nothing else)."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._libs: dict[int, ctypes.CDLL] = {}
+
+    def lib(self, dim_padded: int) -> ctypes.CDLL:
+        if dim_padded not in self._libs:
+            from coolchic_tpu_torch.utils.build import build_shared_library, find_nvcc
+
+            path = build_shared_library(
+                _CU_SRC, f"wavefront_decode_dp{dim_padded}",
+                [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                 f"-DWFD_DP={dim_padded}"], timeout=600)
+            lib = ctypes.CDLL(str(path))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.wavefront_decode_launch.argtypes = [p] * 8 + [i] * 11 + [p]
+            lib.wavefront_decode_launch.restype = i
+            self._libs[dim_padded] = lib
+        return self._libs[dim_padded]
+
+    def launch(self, words, wtr, btr, stw, stb, ifce, taps_t, out, *, h, w,
+               n_spatial, ifce_rows, ifce_packed, dim, n_hidden):
+        R, G, _ = words.shape
+        dp = _kernel_dim(dim)
+        err = self.lib(dp).wavefront_decode_launch(
+            words.data_ptr(), wtr.data_ptr(), btr.data_ptr(), stw.data_ptr(),
+            stb.data_ptr(), ifce.data_ptr(), taps_t.data_ptr(), out.data_ptr(),
+            h, w, G, R, n_spatial, ifce_rows, int(ifce_packed), dim, n_hidden, dp,
+            _ring_rows(w), torch.cuda.current_stream(words.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"wavefront_decode kernel launch failed: CUDA "
+                               f"error {err}")
+        self.launches += 1
+
+
+KERNEL = _WavefrontKernel()
+
+
+def _check_inputs(words, wtr, btr, stw, stb, ifce, h, w, taps, dims, n_ifce,
+                  ifce_packed):
+    dev = words.device
+    R, G, lanes = words.shape
+    dim = len(taps) + n_ifce
+    n_hidden = len(dims) - 1
+    if lanes != LANES:
+        raise ValueError(f"words must be [R, G, {LANES}], got {tuple(words.shape)}")
+    if any(d != (dim, dim) for d in dims[:-1]) or dims[-1] != (dim, 2):
+        raise ValueError(f"ARM dims {dims} are not {n_hidden} x ({dim}, {dim}) "
+                         f"then ({dim}, 2)")
+    rows = max((n_ifce + 1) // 2 if ifce_packed else n_ifce, 1)
+    shapes = {"wtr": (wtr, (G, n_hidden * dim * dim + dim * 2)),
+              "btr": (btr, (G, n_hidden * dim + 2)),
+              "stw": (stw, (G, dim * 2)), "stb": (stb, (G, 2)),
+              "ifce": (ifce, (n_wavefronts(h, w), rows, G, LANES))}
+    for name, (t, shape) in [("words", (words, (R, G, LANES)))] + list(shapes.items()):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, words on {dev}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not MASK < w:
+        raise ValueError(f"wavefront decode needs w > {MASK}, got {w}")
+    return rows, dim, n_hidden
+
+
+def wavefront_decode(words: torch.Tensor, wtr: torch.Tensor, btr: torch.Tensor,
+                     stw: torch.Tensor, stb: torch.Tensor, ifce: torch.Tensor, *,
+                     h: int, w: int, taps: tuple, dims: tuple, n_ifce: int,
+                     ifce_packed: bool) -> torch.Tensor:
+    """Decode G same-shape grids. All inputs int32 on one device:
+    words [R, G, 128] (u32 bit patterns; stream s of grid g, word r at
+    [r, g, s], zero-padded), wtr [G, n_w] / btr [G, n_b] (flat X.8 trunk
+    weights [in, out] row-major, layer after layer, and biases), stw
+    [G, dim*2], stb [G, 2], ifce [D, rows, G, 128] (sheared IFCE context,
+    rows = n_ifce, or ceil(n_ifce/2) int16 pairs when ifce_packed).
+    Returns the [G, h, w] int32 symbols."""
+    rows, dim, n_hidden = _check_inputs(words, wtr, btr, stw, stb, ifce, h, w,
+                                        taps, dims, n_ifce, ifce_packed)
+    dev = words.device
+    if dev.type == "cpu":
+        return wavefront_decode_plain(words, wtr, btr, stw, stb, ifce, h=h, w=w,
+                                      taps=taps, dims=dims, n_ifce=n_ifce,
+                                      ifce_packed=ifce_packed)
+    if dev.type != "cuda":
+        raise ValueError(f"wavefront_decode runs on cuda or cpu, not {dev}")
+    if not kernel_eligible(h, w, dim, n_hidden):
+        raise ValueError(f"[{h}, {w}] grid with ARM width {dim} does not fit "
+                         "the kernel")
+    taps_t = torch.tensor(taps, dtype=torch.int32, device=dev).reshape(-1)
+    out = torch.empty((words.shape[1], h, w), dtype=torch.int32, device=dev)
+    KERNEL.launch(words, wtr, btr, stw, stb, ifce, taps_t, out, h=h, w=w,
+                  n_spatial=len(taps), ifce_rows=rows,
+                  ifce_packed=ifce_packed, dim=dim, n_hidden=n_hidden)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch version. Every value is an exact integer in int64; the
+# 64-bit coder state is carried as (hi, lo) 32-bit halves, since products
+# and differences of u64 values overflow torch's signed int64.
+# ---------------------------------------------------------------------------
+def _exp2_neg24(t: torch.Tensor) -> torch.Tensor:
+    """exp2(-t/2^24) in X.24 for int64 t in [0, 2^47); returns <= 2^24.
+    torch's >> on int64 is arithmetic (floor), as the spec requires."""
+    q = torch.clamp(t >> PRECISION, max=40)
+    f = t & ((1 << PRECISION) - 1)
+    r = torch.full_like(t, EXP2_POLY[6])
+    for k in range(5, -1, -1):
+        r = EXP2_POLY[k] + ((r * f) >> PRECISION)
+    return torch.clamp(r, 0, 1 << PRECISION) >> q
+
+
+def _slope_of(idx_sc: torch.Tensor) -> torch.Tensor:
+    """slope(idx) = max(1, SL0 * exp2i(idx * CSL) >> 24)."""
+    e = _exp2_neg24(idx_sc.to(torch.int64) * CSL)
+    return torch.clamp((SL0 * e) >> PRECISION, min=1)
+
+
+def _left_cum(s: torch.Tensor, mu_fp: torch.Tensor, slope: torch.Tensor) -> torch.Tensor:
+    """left_cum(s), s in [SYM_MIN, SYM_MAX] (tpu_cdf.left_cum)."""
+    m = s * 256 - 128 - mu_fp
+    half = _exp2_neg24(m.abs() * slope) >> 1
+    cdf = torch.where(m < 0, half, (1 << PRECISION) - half)
+    val = ((FREE_WEIGHT * cdf) >> PRECISION) + (s - SYM_MIN) * LEAK_STEP
+    return torch.where(s <= SYM_MIN, 0, val)
+
+
+def _mul_u32x(a: torch.Tensor, a_hi8: torch.Tensor, b: torch.Tensor):
+    """(a_hi8 * 2^32 + a) * b for a < 2^32, a_hi8 < 2^8, b < 2^24 (the
+    product is < 2^64) -> (hi, lo) 32-bit halves."""
+    p = a * b                                   # < 2^56
+    return (p >> 32) + a_hi8 * b, p & _M32
+
+
+def wavefront_decode_plain(words, wtr, btr, stw, stb, ifce, *, h: int, w: int,
+                           taps: tuple, dims: tuple, n_ifce: int,
+                           ifce_packed: bool) -> torch.Tensor:
+    """The plain version of the kernel: the same [G, 128] wavefronts, one
+    Python iteration per wavefront. Symbols live in an unsheared store
+    padded by 4 on the top, left and right, so every out-of-grid tap reads
+    0 (the kernel masks the same taps)."""
+    dev = words.device
+    R, G, _ = words.shape
+    step = tpu_wavefront_step(w)
+    D = n_wavefronts(h, w)
+    n_spatial = len(taps)
+    dim = n_spatial + n_ifce
+    i64 = torch.int64
+
+    words64 = words.to(i64) & _M32
+    # trunk layers as [G, in, out] int64
+    wmats, bvecs = [], []
+    w_off = b_off = 0
+    for n_in, n_out in dims:
+        wmats.append(wtr[:, w_off:w_off + n_in * n_out].to(i64).reshape(G, n_in, n_out))
+        bvecs.append(btr[:, b_off:b_off + n_out].to(i64)[:, None, :])
+        w_off += n_in * n_out
+        b_off += n_out
+    st_w = stw.to(i64).reshape(G, dim, 2)
+    st_b = stb.to(i64)[:, None, :]
+
+    wp = w + 8
+    n_store = (h + 4) * wp
+    store = torch.zeros((G, n_store + 1), dtype=i64, device=dev)  # +1: dummy
+    tap_off = torch.tensor([dy * wp + dx for dy, dx in taps], dtype=i64,
+                           device=dev)
+
+    lane = torch.arange(LANES, dtype=i64, device=dev).expand(G, LANES)
+    zero = torch.zeros((G, LANES), dtype=i64, device=dev)
+    lo_hi, lo_lo = zero, zero
+    rg_hi, rg_lo = zero + _M32, zero + _M32
+    pt_hi, pt_lo = words64[0], words64[1]
+    cur = zero + 2
+    flat_words = words64.permute(1, 2, 0).reshape(G, LANES, R)
+
+    for d in range(D):
+        y_lo = max(0, (d - w + step) // step)
+        y_hi = min(h - 1, d // step)
+        y = y_lo + (lane - y_lo) % LANES
+        active = y <= y_hi
+        x = d - step * y
+        pos = torch.where(active, (y + 4) * wp + x + 4, n_store)
+
+        # ---- context: spatial taps (X.8) then the IFCE features (raw X.8)
+        ctx = torch.gather(store, 1, (pos[..., None] + tap_off).clamp(0, n_store)
+                           .reshape(G, -1)).reshape(G, LANES, n_spatial) << 8
+        if n_ifce > 0:
+            v = ifce[d].to(i64).permute(1, 2, 0)               # [G, 128, rows]
+            if ifce_packed:
+                lo16 = ((v & 0xFFFF) ^ 0x8000) - 0x8000
+                v = torch.stack([lo16, v >> 16], dim=-1).reshape(G, LANES, -1)
+            ctx = torch.cat([ctx, v[..., :n_ifce]], dim=-1)
+        ctx = torch.where(active[..., None], ctx, 0)
+
+        # ---- X.8 ARM (exact integers; the kernel's int32 is certified)
+        st = (ctx[..., None] * st_w[:, None]).sum(2) + st_b
+        act = ctx
+        for li, (wm, bv) in enumerate(zip(wmats, bvecs)):
+            acc = (act[..., None] * wm[:, None]).sum(2) + bv
+            act = (acc + st) >> 8 if li == len(dims) - 1 else torch.relu(acc) >> 8
+        idx_mu = torch.clamp(act[..., 0] - MU_MIN_FIXED_POINT, 0, N_POSSIBLE_MU - 1)
+        mu_fp = idx_mu + MU_MIN_FIXED_POINT
+        slope = _slope_of(torch.clamp(act[..., 1] - LOG_SCALE_MIN_FIXED_POINT, 0,
+                                      N_POSSIBLE_SCALE - 1))
+
+        # ---- quantile = min((point - lower) // (range >> 24), 2^24 - 1)
+        scale = (rg_hi << 8) | (rg_lo >> 24)                  # < 2^40
+        t_lo = pt_lo - lo_lo
+        t_hi = (pt_hi - lo_hi - (t_lo < 0).to(i64)) & _M32
+        t_lo = t_lo & _M32
+        a = (t_hi << 16) | (t_lo >> 16)                       # t >> 16
+        q_a = a // scale
+        r_a = a - q_a * scale
+        quant = torch.clamp((q_a << 16) + (((r_a << 16) | (t_lo & 0xFFFF)) // scale),
+                            max=_QMAX)
+
+        # ---- 7-step binary search: max s with left_cum(s) <= quantile
+        s_sym = torch.full_like(quant, SYM_MIN)
+        for st_ in (64, 32, 16, 8, 4, 2, 1):
+            cand = s_sym + st_
+            ok = (cand <= SYM_MAX) & (_left_cum(cand, mu_fp, slope) <= quant)
+            s_sym = torch.where(ok, cand, s_sym)
+        left = _left_cum(s_sym, mu_fp, slope)
+        nxt = _left_cum(torch.clamp(s_sym + 1, max=SYM_MAX), mu_fp, slope)
+        prob = torch.where(s_sym >= SYM_MAX, (1 << PRECISION) - left, nxt - left)
+
+        # ---- advance and renormalise the active streams
+        sc_hi, sc_lo = scale >> 32, scale & _M32
+        al_hi, al_lo = _mul_u32x(sc_lo, sc_hi, left)
+        nlo_lo = lo_lo + al_lo
+        nlo_hi = (lo_hi + al_hi + (nlo_lo >> 32)) & _M32
+        nlo_lo = nlo_lo & _M32
+        rp_hi, rp_lo = _mul_u32x(sc_lo, sc_hi, prob)
+        renorm = rp_hi == 0
+        ren = active & renorm
+        nw = torch.gather(flat_words, 2, cur.clamp(max=R - 1)[..., None])[..., 0]
+        nw = torch.where(cur < R, nw, 0)   # past the buffer: zero padding
+        lo_hi = torch.where(active, torch.where(renorm, nlo_lo, nlo_hi), lo_hi)
+        lo_lo = torch.where(active, torch.where(renorm, 0, nlo_lo), lo_lo)
+        rg_hi = torch.where(active, torch.where(renorm, rp_lo, rp_hi), rg_hi)
+        rg_lo = torch.where(active, torch.where(renorm, 0, rp_lo), rg_lo)
+        pt_hi = torch.where(ren, pt_lo, pt_hi)
+        pt_lo = torch.where(ren, nw, pt_lo)
+        cur = cur + ren.to(i64)
+
+        store.scatter_(1, pos, torch.where(active, s_sym, 0))
+
+    grid = store[:, :n_store].reshape(G, h + 4, wp)[:, 4:, 4:w + 4]
+    return grid.to(torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Host packing (the counterpart of pallas_decode.decode_grids_pallas).
+# ---------------------------------------------------------------------------
+def shear_src(h: int, w: int) -> np.ndarray:
+    """[D * 128] int32 map from (wavefront d, lane) to the raster pixel
+    y * w + x it decodes, with h * w as the sentinel of an idle lane."""
+    step = tpu_wavefront_step(w)
+    d = np.arange(n_wavefronts(h, w))[:, None]
+    lane = np.arange(LANES)[None, :]
+    y_lo = np.maximum(0, (d - w + step) // step)
+    y_hi = np.minimum(h - 1, d // step)
+    y = y_lo + ((lane - y_lo) % LANES)
+    x = d - step * y
+    return np.where(y <= y_hi, y * w + x, h * w).astype(np.int32).reshape(-1)
+
+
+def pack_int16_pairs(ctx: np.ndarray) -> np.ndarray:
+    """[..., n] int (certified |v| < 2^15) -> [..., ceil(n/2)] int32 with
+    feature 2k in the low half-word and 2k+1 in the high half-word."""
+    ctx = np.asarray(ctx, np.int64)
+    if ctx.shape[-1] % 2:
+        ctx = np.concatenate([ctx, np.zeros(ctx.shape[:-1] + (1,), np.int64)], -1)
+    packed = (ctx[..., 0::2] & 0xFFFF) | ((ctx[..., 1::2] & 0xFFFF) << 16)
+    return packed.astype(np.uint32).view(np.int32)
+
+
+def arm8_flat(arm8: dict) -> tuple[np.ndarray, ...]:
+    """tpu_cdf.arm8_from_int_layers params -> flat int32 (wtr, btr, stw, stb)."""
+    wtr = np.concatenate([np.asarray(m, np.int32).reshape(-1)
+                          for m in arm8["trunk_weights"]])
+    btr = np.concatenate([np.asarray(b, np.int32).reshape(-1)
+                          for b in arm8["trunk_biases"]])
+    return (wtr, btr, np.asarray(arm8["stab_weight"], np.int32).reshape(-1),
+            np.asarray(arm8["stab_bias"], np.int32).reshape(-1))
+
+
+def pack_jobs(jobs: list[dict], h: int, w: int, n_ifce: int,
+              ifce_packed: bool = False) -> dict:
+    """Pack same-shape jobs {"words": 128 u32 arrays, "arm8": X.8 params,
+    "ifce": [h*w, n_ifce] int or None} into the kernel's numpy inputs."""
+    G = len(jobs)
+    R = words_bucket(max(2, max(len(ws) for j in jobs for ws in j["words"])))
+    words = np.zeros((R, G, LANES), np.uint32)
+    flat = [arm8_flat(j["arm8"]) for j in jobs]
+    rows = max((n_ifce + 1) // 2 if ifce_packed else n_ifce, 1)
+    ifce = np.zeros((n_wavefronts(h, w), rows, G, LANES), np.int32)
+    src = shear_src(h, w)
+    for g, job in enumerate(jobs):
+        for s, ws in enumerate(job["words"]):
+            words[: len(ws), g, s] = ws
+        if n_ifce > 0:
+            ctx = np.asarray(job["ifce"], np.int64)
+            if ifce_packed:
+                ctx = pack_int16_pairs(ctx)
+            padded = np.concatenate([ctx, np.zeros((1, ctx.shape[1]), ctx.dtype)])
+            ifce[:, :, g, :] = padded[src].reshape(-1, LANES, rows).transpose(0, 2, 1)
+    return {"words": words.view(np.int32),
+            "wtr": np.stack([f[0] for f in flat]), "btr": np.stack([f[1] for f in flat]),
+            "stw": np.stack([f[2] for f in flat]), "stb": np.stack([f[3] for f in flat]),
+            "ifce": ifce}
+
+
+def decode_grids(jobs: list[dict], h: int, w: int, ctx_idx: np.ndarray, n_ifce: int,
+                 device: str | torch.device = "cuda", ifce_packed: bool = False,
+                 plain: bool = False) -> list[np.ndarray]:
+    """Decode a batch of same-shape, same-architecture [h, w] grids (each job
+    as in pack_jobs; weights, payloads and IFCE contexts may differ). plain
+    runs the plain version on the device instead of the kernel. Returns the
+    int64 grids in job order."""
+    from coolchic_tpu_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
+    arrays = pack_jobs(jobs, h, w, n_ifce, ifce_packed)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+    dims = tuple((int(m.shape[0]), int(m.shape[1]))
+                 for m in jobs[0]["arm8"]["trunk_weights"])
+    kw = dict(h=h, w=w, taps=_tap_list(ctx_idx), dims=dims, n_ifce=n_ifce,
+              ifce_packed=ifce_packed)
+    fn = wavefront_decode_plain if plain else wavefront_decode
+    out = fn(t["words"], t["wtr"], t["btr"], t["stw"], t["stb"], t["ifce"], **kw)
+    return [g.astype(np.int64) for g in out.cpu().numpy()]
