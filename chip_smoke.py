@@ -22,9 +22,15 @@ Phases, each fatal on failure:
      within one code value;
   4. timing with CUDA events (warm-up, median of 5): batch decode, kernel
      per level at G = 8, kernel and plain version on one level-0 grid, the
-     host C++ decode of that grid as a yardstick, and the kernel's bound.
+     host C++ decode of that grid as a yardstick, and the kernel's bound;
+     level 0 at G = 1, 8 and 32; the ablation line: level 0 at G = 8 for
+     the team kernel at T = 4 and 8 and the first design (one thread per
+     stream, csrc/wavefront_decode_pr1.cu), each in full (bit-exact against
+     the main kernel) and with each part stubbed (-DWFD_ABLATE), in us per
+     wavefront; the batch decode split into IFCE + shear, kernels and the
+     float tail.
 
-Prints a {"kernels": [...]} line, then the card line, and ends with
+Prints the ablation line, a {"kernels": [...]} line, then the card line, and ends with
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA card or outside a checkout of the repo.
 """
@@ -50,6 +56,11 @@ N_TIMED = 5
 # issue at most.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+# Timing yardsticks of phase 4: (design, team) pairs, and the parts the
+# -DWFD_ABLATE bits stub (the first design has no team: 1 thread a stream).
+DESIGNS = (("team", 4), ("team", 8), ("first", 1))
+ABLATE_PARTS = (("taps", 1), ("arm", 2), ("div", 4), ("search", 8), ("refill", 16),
+                ("barrier", 32))
 
 
 def fail(msg: str) -> None:
@@ -108,6 +119,56 @@ def kernel_bound(h: int, w: int, G: int, R: int, ifce_rows: int, dim: int,
                                            "serial_wavefronts": D}
 
 
+def split_batch_ms(batch) -> dict:
+    """DeviceBatch.run's device time by part: the same calls as run(), with
+    CUDA events between them; median over N_TIMED runs after a warm-up, ms
+    summed over the levels (IFCE context + shear, kernel) and the float tail
+    (upsampling, synthesis, resize)."""
+    import torch
+
+    from coolchic_tpu_torch.models.synthesis import synthesis_batched
+    from coolchic_tpu_torch.models.upsampling import upsampling_batched
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+    from coolchic_tpu_torch.ops.resize import interpolate
+
+    cfg = batch.cfg
+    samples: dict[str, list] = {}
+    for it in range(N_TIMED + 1):
+        events, names = [torch.cuda.Event(enable_timing=True)], []
+        events[0].record()
+
+        def mark(name):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            names.append(name)
+
+        decoded = dict(batch.host_grids)
+        with torch.no_grad():
+            for li, level in enumerate(batch.device_levels):
+                tensors, kw = batch.kernel_inputs(li, decoded)
+                check(wfd.grid_batch_limit(kw["h"], kw["w"], tensors[5].shape[1],
+                                           tensors[0].shape[0], batch.G, batch.device)
+                      == batch.G, "the batch does not fit one launch per level")
+                mark("ifce_shear")
+                decoded[level] = wfd.wavefront_decode(*tensors, **kw)
+                mark("kernel")
+            syn_grids = [decoded[l].float() for l in range(cfg.n_latent_grids)
+                         if not cfg.flag_is_hyperlatent[l]]
+            dense = upsampling_batched([m[0] for m in batch.modules], syn_grids)
+            syn_out = synthesis_batched([m[1] for m in batch.modules], dense)
+            interpolate(syn_out, cfg.img_size, cfg.final_upsampling_type)
+            mark("float_tail")
+        torch.cuda.synchronize()
+        if it == 0:
+            continue
+        total: dict[str, float] = {}
+        for name, a, b in zip(names, events[:-1], events[1:]):
+            total[name] = total.get(name, 0.0) + a.elapsed_time(b)
+        for name, v in total.items():
+            samples.setdefault(name, []).append(v)
+    return {name: statistics.median(v) for name, v in samples.items()}
+
+
 def main() -> int:
     import torch
 
@@ -163,15 +224,23 @@ def main() -> int:
         fn(*args)
         return time.time() - t0
 
+    # every library of the run, one compiler each, all started together: the
+    # main path's kernel, then phase 4's yardsticks (the first design, the
+    # other team size, and each with one part stubbed)
+    arm_dp = wfd._kernel_dim(arm_dim)
+    variants = [(design, team, ab) for design, team in DESIGNS
+                for ab in (0,) + tuple(bit for _, bit in ABLATE_PARTS)]
     t0 = time.time()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(len(variants) + 1) as ex:
         f_rc = ex.submit(timed_build, rc.get_lib)
-        f_cu = ex.submit(timed_build, wfd.KERNEL.lib, wfd._kernel_dim(arm_dim))
-        s_rc, s_cu = f_rc.result(), f_cu.result()
+        f_cu = {v: ex.submit(timed_build, lambda v=v: wfd.KERNEL.lib(
+            arm_dp, v[1], _design=v[0], _ablate=v[2])) for v in variants}
+        s_rc = f_rc.result()
+        s_cu = {v: f.result() for v, f in f_cu.items()}
     print(f"[1] built rangecoder (g++) in {s_rc:.1f} s and wavefront_decode "
-          f"(nvcc, sm_90a, ARM width {arm_dim} padded to "
-          f"{wfd._kernel_dim(arm_dim)}) in {s_cu:.1f} s; {time.time() - t0:.1f} s "
-          "together", flush=True)
+          f"(nvcc, sm_90a, ARM width {arm_dim} padded to {arm_dp}, team of "
+          f"{wfd.TEAM}) in {s_cu[('team', wfd.TEAM, 0)]:.1f} s, with {len(variants) - 1} "
+          f"timing variants; {time.time() - t0:.1f} s together", flush=True)
 
     # ------------------------------------------- inputs: 8 distinct bitstreams
     imgs = []
@@ -349,6 +418,53 @@ def main() -> int:
           f"{bound1:.4f} ms ({by1}), host C++ {host_ms:.1f} ms (host clock; all medians "
           f"of {N_TIMED})", flush=True)
 
+    # level 0 at G = 1, 8, 32: the time stays flat while G <= 132 SMs
+    ref0 = wfd.wavefront_decode(*tensors, **kw)
+    t32 = [tensors[0].repeat(1, 4, 1), *(t.repeat(4, 1) for t in tensors[1:5]),
+           tensors[5].repeat(1, 1, 4, 1)]
+    check(torch.equal(wfd.wavefront_decode(*t32, **kw), ref0.repeat(4, 1, 1)),
+          "level 0 at G = 32 differs from G = 8 repeated")
+    by_g = {1: kern1_ms, batch.G: next(p["ms"] for p in per_level if p["level"] == 0),
+            4 * batch.G: cuda_ms(lambda: wfd.wavefront_decode(*t32, **kw))}
+    del t32
+    print("[4] level 0 kernel by G: " + ", ".join(f"G={g} {ms:.3f} ms" for g, ms in
+                                                 by_g.items()), flush=True)
+
+    # ablation on the main path's level-0 inputs (G = 8): each design in
+    # full, then with one part stubbed; a part's cost is the time it takes
+    # out, in us per wavefront
+    D0 = wfd.n_wavefronts(kw["h"], kw["w"])
+    taps_t = wfd.KERNEL.taps_tensor(kw["taps"], dev)
+
+    def launch_variant(design, team, ablate):
+        words, wtr, btr, stw, stb, ifce = tensors
+        out = torch.empty((words.shape[1], kw["h"], kw["w"]), dtype=torch.int32,
+                          device=dev)
+        wfd.KERNEL.launch(words, wtr, btr, stw, stb, ifce, taps_t, out, h=kw["h"],
+                          w=kw["w"], n_spatial=len(kw["taps"]), ifce_rows=ifce.shape[1],
+                          ifce_packed=kw["ifce_packed"], dim=dim,
+                          n_hidden=len(kw["dims"]) - 1, team=team, _design=design,
+                          _ablate=ablate)
+        return out
+
+    ablation = {}
+    for design, team in DESIGNS:
+        name = design if design == "first" else f"team{team}"
+        check(torch.equal(launch_variant(design, team, 0), ref0),
+              f"{name} design differs from the main kernel at level 0")
+        full_ms = cuda_ms(lambda: launch_variant(design, team, 0))
+        row = {"level0_g8_ms": full_ms, "full": 1e3 * full_ms / D0}
+        for part, bit in ABLATE_PARTS:
+            row[part] = 1e3 * (full_ms - cuda_ms(lambda: launch_variant(design, team, bit))) / D0
+        ablation[name] = row
+    print(json.dumps({"ablation_us_per_wavefront": ablation, "level": 0, "G": batch.G,
+                      "wavefronts": D0, "card": card}), flush=True)
+
+    split = split_batch_ms(batch)
+    print(f"[4] batch decode split (CUDA events, median of {N_TIMED}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f"; total {sum(split.values()):.3f} ms", flush=True)
+
     kernels = [{
         "name": "wavefront_decode",
         "route": "cuda",
@@ -364,9 +480,13 @@ def main() -> int:
         "matches_plain": max_abs_err == 0,
         "work": "ms, plain_ms, bound_ms: one 512x768 level-0 grid (G = 1); per_level: "
                 "the main path's G = 8 launches",
+        "team": wfd.TEAM,
         "host_cpp_ms": host_ms,
         "per_level": per_level,
+        "level0_ms_by_G": by_g,
+        "first_design_level0_ms": ablation["first"]["level0_g8_ms"],
         "batch_decode_ms": batch_ms,
+        "batch_split_ms": split,
         "mpix_per_s": mpix / batch_ms * 1e3,
     }]
     tmp.cleanup()

@@ -5,36 +5,71 @@
 // same function, bit for bit (the integer CDF of bitstream/tpu_cdf.py, the
 // int32 X.8 ARM, 128 constriction-compatible range-decoder streams).
 //
-// Design (simple first):
-//   * one CTA per grid, 128 threads, thread = stream = lane (stream of pixel
-//     (y, x) is y mod 128). Wavefront d holds the pixels with x + step*y = d;
-//     each thread decodes at most one of them per wavefront.
-//   * coder state (lower, range, point, word cursor) in native u64
-//     registers: scale < 2^40 and left/prob < 2^24, so every product fits.
-//     The TPU kernel's u32-pair helpers are not needed.
-//   * the last RING (>= OFFMAX + 1) wavefronts of decoded symbols in a
-//     shared-memory ring of int8 (symbols are in [-64, 63]). Tap (dy, dx)
-//     of lane l reads ring row (d + dx + step*dy) and lane (l + dy) & 127,
-//     the TPU kernel's pltpu.roll(row, -dy). One __syncthreads() per
-//     wavefront separates a wavefront's stores from the next one's reads.
-//   * the grid's ARM weights, the 2561-entry slope table and the taps live
-//     in shared memory, loaded once; every thread reads the same weight at
-//     the same time (a broadcast). The ARM width is padded with zero
-//     weights to DP, a multiple of 4 fixed at build time (-DWFD_DP=...),
-//     which is exact.
-//   * word refill is a direct load words[cur][g][lane] (zero past the end);
-//     IFCE context reads ifce[d][k][g][lane] are coalesced across the CTA.
-//   * symbols are written straight to out[g][y][x].
+// What bounds it. A grid is decoded over D = (w-1) + (h-1)*step + 1 serial
+// wavefronts (3834 at 512x768); at each, each of the 128 streams decodes at
+// most one pixel, and the next wavefront needs its symbols. The bytes moved
+// take microseconds; the time is D times the time of one wavefront. With
+// one thread per stream (csrc/wavefront_decode_pr1.cu, the first design) a
+// wavefront was one warp per SM sub-partition running ~2000 dependent
+// instructions (an X.8 ARM of serial 20-term dot products, nine serial
+// evaluations of the CDF in 64-bit arithmetic, a u64 division), so every
+// instruction paid its full latency. This design spreads a stream over a
+// team of threads, so that a wavefront is bound by the instructions the
+// sub-partitions issue (most of them the ARM's multiply-adds and the CDF
+// evaluations) and by the lockstep of the one barrier per wavefront, not by
+// one thread's latency:
 //
-// What bounds it: the serial chain of D = (w-1) + (h-1)*step + 1 dependent
-// wavefronts (3834 at 512x768), each a few thousand dependent integer
-// instructions per thread (the X.8 ARM's multiply-adds, a 7-step search of
-// the integer CDF, one u64 division). The bytes it moves take microseconds.
-// One CTA per grid uses G of the 132 SMs (8 at the serving batch): the
-// kernel is latency-bound by design here, and PERF.md records its time.
+//   * a team of T threads (-DWFD_TEAM, 4 or 8) per stream, in one warp: the
+//     CTA is 128*T threads, one per grid. stream = threadIdx.x / T; the ring
+//     lane rotation (stream + dy) & 127 is unchanged. Member m owns the ARM
+//     inputs and hidden outputs j*T + m (j < J = ceil(DP/T)): it computes
+//     those context values, the J outputs of each hidden layer as J
+//     independent accumulators, and its share of the stabiliser and of the
+//     last layer (their weights held in registers), which the team sums with
+//     __shfl_xor_sync (int32 wrapping adds: any order gives the same
+//     certified result). Hidden activations are all-gathered through a
+//     per-stream shared-memory row (double buffered, one __syncwarp per
+//     layer). The SM holds 4*T warps, so the schedulers interleave them.
+//   * hidden weights in shared memory, rows padded (RS words, RS/4 odd) so
+//     that the T distinct rows a quarter-warp reads fall in distinct banks;
+//     the activation rows likewise (AS).
+//   * an 8-ary symbol search: two rounds of 8 cut points (strides 16, 2)
+//     spread over the team, each round one evaluation of left_cum per member
+//     (two at T = 4) and a popcount of the team's ballot; a third round
+//     evaluates left_cum at base, base+1, base+2 and gives the symbol, `left`
+//     and `prob` by shuffles. Three serial evaluations instead of nine.
+//   * left_cum on 32-bit operands: every product is one 32x32->64 multiply,
+//     and a Horner step is one 64-bit multiply-add and one shift (bounds at
+//     exp2_neg24_32 and left_cum_32, proved by the CPU tests).
+//   * the quantile by an FP64 reciprocal estimate, corrected exactly with
+//     two integer multiply-compares (bounds at quantile()); it depends only
+//     on the coder state, so it overlaps the context and the ARM.
+//   * loads off the chain: the IFCE context of wavefront d+1 is loaded into
+//     registers during wavefront d; the next refill word is always already
+//     in a register; the taps' ring offsets, lanes and bounds live in
+//     registers, and a context value is chosen without branches (an IFCE
+//     int16 is sign-extended by one prmt); the row range of a wavefront is
+//     advanced by counters, not divisions.
+//   * a warp whose streams are all idle at a wavefront skips the decode.
+//
+// Kept from the first design: one __syncthreads() per wavefront, the int8
+// shared-memory ring of the last RING (>= OFFMAX + 1) wavefronts, the ARM
+// width padded with zero weights to DP (a multiple of 4, -DWFD_DP; exact),
+// u64 coder state, direct word loads (zero past the end), symbols written
+// straight to out[g][y][x]. One CTA per grid still leaves most SMs idle at
+// a small batch; spreading a grid over a cluster is later work.
+//
+// -DWFD_ABLATE=<bits> stubs parts for timing only (the decode is then
+// garbage; chip_smoke.py's timing phase is the only builder): 1 taps (the
+// context becomes d ^ k, no ring or IFCE reads), 2 ARM (mu and log-scale from
+// two context values), 4 division (quantile from the point's low bits),
+// 8 search (symbol from the quantile, fixed left and prob), 16 refill (the
+// refill word from the point, no load); the JAX package's _ABLATE knob has
+// the same parts. 32 barrier (a __syncwarp in place of the wavefront's
+// __syncthreads: the warps drift apart, which shows what the lockstep costs).
 //
 // Built by ops/wavefront_decode.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -DWFD_DP=<DP>
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -DWFD_DP=<DP> -DWFD_TEAM=<T>
 // into a plain shared library; wavefront_decode_launch is bound with ctypes.
 
 #include <cstdint>
@@ -43,61 +78,138 @@
 #ifndef WFD_DP
 #error "build with -DWFD_DP=<padded ARM width, a multiple of 4>"
 #endif
+#ifndef WFD_TEAM
+#error "build with -DWFD_TEAM=<threads per stream, 4 or 8>"
+#endif
+#ifndef WFD_ABLATE
+#define WFD_ABLATE 0
+#endif
 
 namespace {
 
+constexpr int ABLATE = WFD_ABLATE;
 constexpr int DP = WFD_DP;
+constexpr int T = WFD_TEAM;
 static_assert(DP % 4 == 0 && DP >= 4 && DP <= 64, "DP must be a multiple of 4 in [4, 64]");
+static_assert(T == 4 || T == 8, "a team is 4 or 8 threads");
 constexpr int LANES = 128;
+constexpr int THREADS = LANES * T;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr unsigned TEAM_BITS = (1u << T) - 1;
+constexpr int J = (DP + T - 1) / T;       // ARM inputs / hidden outputs per member
+constexpr int OP = J * T;                 // hidden outputs, padded (zero rows)
+constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+constexpr int odd4(int n) { return (n / 4) % 2 ? n : n + 4; }
+constexpr int RS = odd4(DP);              // weight row stride (words)
+constexpr int AS = odd4(round4(OP));      // activation row stride (words)
+constexpr int ARITY = 8;                  // cut points per search round
+constexpr int EVALS = ARITY / T;          // left_cum evaluations per member and round
+
 constexpr int PRECISION = 24;
+constexpr uint32_t QMAX = (1u << PRECISION) - 1;
 constexpr int SYM_MIN = -64;
 constexpr int SYM_MAX = 63;
+constexpr int N_SYM = SYM_MAX - SYM_MIN + 1;
 constexpr int LEAK_STEP = 16;
 constexpr uint32_t FREE_WEIGHT = (1u << PRECISION) - 1 - uint32_t(SYM_MAX - SYM_MIN) * LEAK_STEP;
 constexpr int MU_MIN_FP = -64 * 256;
 constexpr int LOG_SCALE_MIN_FP = -5 * 256;
 constexpr int N_POSSIBLE_MU = 32768;
 constexpr int N_POSSIBLE_SCALE = 2561;
-constexpr uint64_t CSL = 94548;
-constexpr uint64_t SL0 = 14032236;
+constexpr uint32_t CSL = 94548;
+constexpr uint32_t SL0 = 14032236;
+constexpr int SMEM_LIMIT = 232448;
 
-// exp2(-t / 2^24) in X.24 (tpu_cdf.exp2_neg24): degree-6 integer Horner with
-// arithmetic (floor) shifts; every intermediate |r * f| < 2^49. The final
-// shift by q <= 40 is done in u64 (a u32 shift by >= 32 is undefined).
-__device__ __forceinline__ uint32_t exp2_neg24(uint64_t t) {
-    uint64_t q = t >> PRECISION;
-    if (q > 40) q = 40;
-    const long long f = (long long)(t & ((1u << PRECISION) - 1));
-    long long r = 1835;
-    r = -21395 + ((r * f) >> PRECISION);
-    r = 160710 + ((r * f) >> PRECISION);
-    r = -930970 + ((r * f) >> PRECISION);
-    r = 4030290 + ((r * f) >> PRECISION);
-    r = -11629077 + ((r * f) >> PRECISION);
-    r = 16777216 + ((r * f) >> PRECISION);
-    if (r < 0) r = 0;
-    if (r > (1 << PRECISION)) r = 1 << PRECISION;
-    return (uint32_t)((uint64_t)r >> q);
+// exp2(-t / 2^24) in X.24 for t = a * b (tpu_cdf.exp2_neg24), on 32-bit
+// operands. Callers pass a < 2^16 and b < 2^24 (|m| <= 32895 and slope <=
+// SL0 < 2^24 in left_cum; idx < 2^12 and CSL < 2^17 for the slope table), so
+// t < 2^40 is one 32x32->64 multiply. f = t mod 2^24 < 2^24. Through the
+// Horner steps |r| < 2^25, so r * f is one signed 32x32->64 multiply with
+// |r * f| < 2^49; with the step's constant C (|C| <= 2^24) added as C * 2^24,
+// |r * f + C * 2^24| < 2^50, and its arithmetic (floor) shift by 24 fits
+// int32. The shift q = t >> 24 < 2^16 is clamped to 31: 0 <= r <= 2^24 after
+// the clamp, so r >> q is 0 for every q >= 25, as the reference's min(q, 40)
+// gives.
+__device__ __forceinline__ uint32_t exp2_neg24_32(uint32_t a, uint32_t b) {
+    const uint64_t t = (uint64_t)a * b;
+    const int32_t f = (int32_t)((uint32_t)t & QMAX);
+    const uint32_t q = min((uint32_t)(t >> PRECISION), 31u);
+    // C + ((r * f) >> 24) == (r * f + C * 2^24) >> 24 (C an integer): one
+    // 64-bit multiply-add and one shift a step
+    auto horner = [f](int32_t r, int64_t c) -> int32_t {
+        return (int32_t)(((int64_t)r * f + (c << PRECISION)) >> PRECISION);
+    };
+    int32_t r = 1835;
+    r = horner(r, -21395);
+    r = horner(r, 160710);
+    r = horner(r, -930970);
+    r = horner(r, 4030290);
+    r = horner(r, -11629077);
+    r = horner(r, 16777216);
+    r = min(max(r, 0), 1 << PRECISION);
+    return (uint32_t)r >> q;
 }
 
-__device__ __forceinline__ uint32_t left_cum(int s, int mu_fp, uint32_t slope) {
-    if (s <= SYM_MIN) return 0;
-    const int m = s * 256 - 128 - mu_fp;
-    const uint64_t am = (uint64_t)(m < 0 ? -m : m);
-    const uint32_t half = exp2_neg24(am * slope) >> 1;
+// left_cum of symbol k + SYM_MIN, k in [0, 127] (tpu_cdf.left_cum).
+// m = s*256 - 128 - mu_fp with s in [-64, 63] and mu_fp in [-16384, 16383],
+// so |m| <= 32895 < 2^16; cdf <= 2^24 and FREE_WEIGHT < 2^24, so their
+// product < 2^48 is one 32x32->64 multiply.
+__device__ __forceinline__ uint32_t left_cum_32(int k, int mu_fp, uint32_t slope) {
+    const int m = (k + SYM_MIN) * 256 - 128 - mu_fp;
+    const uint32_t half = exp2_neg24_32((uint32_t)abs(m), slope) >> 1;
     const uint32_t cdf = m < 0 ? half : (1u << PRECISION) - half;
-    return (uint32_t)(((uint64_t)FREE_WEIGHT * cdf) >> PRECISION)
-           + (uint32_t)(s - SYM_MIN) * LEAK_STEP;
+    const uint32_t v = (uint32_t)(((uint64_t)FREE_WEIGHT * cdf) >> PRECISION)
+                       + (uint32_t)k * LEAK_STEP;
+    return k <= 0 ? 0u : v;
 }
 
-// Shared-memory layout, in 4-byte words then the int8 ring; must match
-// ops/wavefront_decode.py:kernel_smem_bytes. Weights are stored [out][in]
-// (rows of DP, 16-byte aligned) so a row is read as int4.
-//   hidden weights [n_hidden][DP][DP], hidden biases [n_hidden][DP],
-//   last weights [2][DP], last biases [2], stab weights [2][DP], stab biases [2],
-//   slope [N_POSSIBLE_SCALE], tap offset / dy / dx [DP] each,
-//   per-thread layer outputs [DP][128], ring [RING][128] (int8).
-__global__ void __launch_bounds__(LANES)
+// The word p with its bytes permuted by `sel` (prmt's default mode: a
+// selector nibble with its top bit set replicates the sign of its byte):
+// 0x3210 keeps p, 0x9910 sign-extends its low int16, 0xBB32 its high int16.
+__device__ __forceinline__ int32_t prmt_sext(int32_t p, int sel) {
+    int32_t r;
+    asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(p), "r"(sel));
+    return r;
+}
+
+// a * scale for a <= 2^24 and scale < 2^40: a * (scale >> 32) < 2^32, and
+// the whole product < 2^64.
+__device__ __forceinline__ uint64_t mul_scale(uint32_t a, uint64_t scale) {
+    return (uint64_t)a * (uint32_t)scale + ((uint64_t)(a * (uint32_t)(scale >> 32)) << 32);
+}
+
+// min(t / scale, 2^24 - 1) for t < 2^64, scale in [2^8, 2^40) (range is in
+// [2^32, 2^64) between symbols). The FP64 estimate t_d * rcp(scale_d), each
+// step correctly rounded, has relative error < 3.1 * 2^-53; while t / scale
+// < 2^25 its absolute error is < 2^-26, so its floor q0 is the quotient or
+// one off; if t / scale >= 2^25 the estimate exceeds 2^24 - 1 and clamps
+// like the quotient. After the clamp, one step down (q * scale > t) or up
+// ((q + 1) * scale <= t, q < 2^24 - 1) is exact; q + 1 <= 2^24, so both
+// products are < 2^64 (mul_scale).
+__device__ __forceinline__ uint32_t quantile(uint64_t t, uint64_t scale) {
+    double qd = __dmul_rn(__ull2double_rn(t), __drcp_rn(__ull2double_rn(scale)));
+    qd = fmin(qd, (double)QMAX);
+    uint32_t q = __double2uint_rz(qd);
+    if (mul_scale(q, scale) > t) {
+        --q;
+    } else if (q < QMAX && mul_scale(q + 1, scale) <= t) {
+        ++q;
+    }
+    return q;
+}
+
+// Shared-memory layout in 4-byte words, then the int8 ring; must match
+// ops/wavefront_decode.py:kernel_smem_bytes.
+//   activation rows [2][128][AS], hidden weights [n_hidden][OP][RS] ([out][in]),
+//   per-input (stab0, stab1, last0, last1) weights [OP] as int4,
+//   hidden biases [n_hidden][OP], (last0 + stab0, last1 + stab1) biases [4],
+//   slope [N_POSSIBLE_SCALE], ring [RING][128] (int8).
+__host__ __device__ constexpr int smem_words(int n_hidden) {
+    return 2 * LANES * AS + n_hidden * OP * RS + 4 * OP + n_hidden * OP + 4
+           + N_POSSIBLE_SCALE;
+}
+
+__global__ void __launch_bounds__(THREADS)
 wavefront_decode_kernel(const uint32_t* __restrict__ words,   // [R, G, 128]
                         const int32_t* __restrict__ wtr,      // [G, n_w]
                         const int32_t* __restrict__ btr,      // [G, n_b]
@@ -110,189 +222,292 @@ wavefront_decode_kernel(const uint32_t* __restrict__ words,   // [R, G, 128]
                         int ifce_packed, int dim, int n_hidden, int ring_mask) {
     extern __shared__ int4 smem4[];
     int32_t* smem = reinterpret_cast<int32_t*>(smem4);
-    int32_t* s_w = smem;
-    int32_t* s_b = s_w + n_hidden * DP * DP;
-    int32_t* s_wl = s_b + n_hidden * DP;
-    int32_t* s_bl = s_wl + 2 * DP;
-    int32_t* s_sw = s_bl + 2;
-    int32_t* s_sb = s_sw + 2 * DP;
-    uint32_t* s_slope = reinterpret_cast<uint32_t*>(s_sb + 2);
-    int32_t* s_toff = reinterpret_cast<int32_t*>(s_slope + N_POSSIBLE_SCALE);
-    int32_t* s_tdy = s_toff + DP;
-    int32_t* s_tdx = s_tdy + DP;
-    int32_t* s_act = s_tdx + DP;
-    int8_t* ring = reinterpret_cast<int8_t*>(s_act + DP * LANES);
+    int32_t* s_act = smem;
+    int32_t* s_w = s_act + 2 * LANES * AS;
+    int4* s_ls = reinterpret_cast<int4*>(s_w + n_hidden * OP * RS);
+    int32_t* s_b = reinterpret_cast<int32_t*>(s_ls + OP);
+    int32_t* s_bias2 = s_b + n_hidden * OP;
+    uint32_t* s_slope = reinterpret_cast<uint32_t*>(s_bias2 + 4);
+    int8_t* ring = reinterpret_cast<int8_t*>(s_slope + N_POSSIBLE_SCALE);
 
     const int g = blockIdx.x;
-    const int lane = threadIdx.x;
+    const int tid = threadIdx.x;
+    const int stream = tid / T;
+    const int mem = tid % T;
+    const int team0 = (tid & 31) & ~(T - 1);   // the team's first lane in the warp
     const int step = max(5, (w + LANES - 1) / LANES);
     const int D = (w - 1) + (h - 1) * step + 1;
     const int n_w = n_hidden * dim * dim + dim * 2;
     const int n_b = n_hidden * dim + 2;
 
-    // ---- load this grid's parameters, transposed to [out][in] and padded
-    // with zeros to DP (exact: padded inputs are 0, padded outputs unused)
-    const int n_param_words = n_hidden * DP * DP + n_hidden * DP + 4 * DP + 4;
-    for (int i = lane; i < n_param_words; i += LANES) smem[i] = 0;
-    for (int i = lane; i < (ring_mask + 1) * LANES; i += LANES) ring[i] = 0;
+    // ---- this grid's parameters, transposed to [out][in] and padded with
+    // zeros (exact: padded inputs are 0, padded outputs have zero weights)
+    const int n_param_words = smem_words(n_hidden) - N_POSSIBLE_SCALE;
+    for (int i = tid; i < n_param_words; i += THREADS) smem[i] = 0;
+    for (int i = tid; i < (ring_mask + 1) * LANES; i += THREADS) ring[i] = 0;
     __syncthreads();
     const int32_t* gw = wtr + (size_t)g * n_w;
     const int32_t* gb = btr + (size_t)g * n_b;
     for (int l = 0; l < n_hidden; ++l) {
-        for (int j = lane; j < dim * dim; j += LANES)   // global [in][out]
-            s_w[(l * DP + j % dim) * DP + j / dim] = gw[l * dim * dim + j];
-        for (int o = lane; o < dim; o += LANES) s_b[l * DP + o] = gb[l * dim + o];
+        for (int j = tid; j < dim * dim; j += THREADS)   // global [in][out]
+            s_w[(l * OP + j % dim) * RS + j / dim] = gw[l * dim * dim + j];
+        for (int o = tid; o < dim; o += THREADS) s_b[l * OP + o] = gb[l * dim + o];
     }
-    for (int j = lane; j < dim * 2; j += LANES) {       // global [in][2]
-        s_wl[(j % 2) * DP + j / 2] = gw[n_hidden * dim * dim + j];
-        s_sw[(j % 2) * DP + j / 2] = stw[(size_t)g * dim * 2 + j];
+    int32_t* s_ls32 = reinterpret_cast<int32_t*>(s_ls);
+    for (int j = tid; j < dim * 2; j += THREADS) {       // global [in][2]
+        s_ls32[4 * (j / 2) + (j % 2)] = stw[(size_t)g * dim * 2 + j];
+        s_ls32[4 * (j / 2) + 2 + (j % 2)] = gw[n_hidden * dim * dim + j];
     }
-    if (lane < 2) {
-        s_bl[lane] = gb[n_hidden * dim + lane];
-        s_sb[lane] = stb[(size_t)g * 2 + lane];
-    }
-    for (int i = lane; i < N_POSSIBLE_SCALE; i += LANES) {
-        const uint64_t s = ((uint64_t)SL0 * exp2_neg24((uint64_t)i * CSL)) >> PRECISION;
+    if (tid < 2) s_bias2[tid] = gb[n_hidden * dim + tid] + stb[(size_t)g * 2 + tid];
+    for (int i = tid; i < N_POSSIBLE_SCALE; i += THREADS) {
+        const uint64_t s = ((uint64_t)SL0 * exp2_neg24_32(i, CSL)) >> PRECISION;
         s_slope[i] = s < 1 ? 1u : (uint32_t)s;
     }
-    if (lane < n_spatial) {
-        const int dy = taps[2 * lane], dx = taps[2 * lane + 1];
-        s_tdy[lane] = dy;
-        s_tdx[lane] = dx;
-        s_toff[lane] = dx + step * dy;
-    }
-    __syncthreads();
 
-    // ---- coder state
-    auto word_at = [&](int r) -> uint64_t {
-        return r < R ? (uint64_t)words[((size_t)r * G + g) * LANES + lane] : 0ull;
+    // ---- this member's inputs k = j*T + mem, held in registers for the
+    // whole kernel. A tap (dy, dx): its ring row offset dx + step*dy, ring
+    // lane (stream + dy) & 127, dx, and the least row -dy it is valid at. An
+    // IFCE input: the offset of its context word in a wavefront's block, and
+    // the prmt selector that extracts it (the word, or its low or high int16
+    // sign-extended); its row bound is out of reach, so it never reads the
+    // ring. A zero input (k >= dim) is an IFCE input whose word is 0.
+    int roff[J], rsel[J], rdx[J], rymin[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+        const int k = j * T + mem;
+        roff[j] = 0;
+        rsel[j] = 0x3210;
+        rdx[j] = 0;
+        rymin[j] = 1 << 30;
+        if (k < n_spatial) {
+            const int dy = taps[2 * k], dx = taps[2 * k + 1];
+            roff[j] = dx + step * dy;
+            rsel[j] = (stream + dy) & (LANES - 1);
+            rdx[j] = dx;
+            rymin[j] = -dy;
+        } else if (k < dim) {
+            const int kk = k - n_spatial;
+            roff[j] = ((ifce_packed ? kk / 2 : kk) * G + g) * LANES + stream;
+            rsel[j] = !ifce_packed ? 0x3210 : (kk & 1) ? 0xBB32 : 0x9910;
+        }
+    }
+    // IFCE words of wavefront d (zero past the end and for taps)
+    const size_t ifce_wf = (size_t)ifce_rows * G * LANES;
+    auto load_ifce = [&](int d, int32_t (&v)[J]) {
+        const int32_t* block = ifce + (size_t)d * ifce_wf;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            const int k = j * T + mem;
+            v[j] = !(ABLATE & 1) && k >= n_spatial && k < dim && d < D ? block[roff[j]] : 0;
+        }
+    };
+    int32_t ifc[J];
+    load_ifce(0, ifc);
+    __syncthreads();
+    // this member's (stab0, stab1, last0, last1) weights, for the whole kernel
+    int4 ls[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) ls[j] = s_ls[j * T + mem];
+
+    // ---- coder state; the next refill word is always already loaded
+    auto word_at = [&](int r) -> uint32_t {
+        return r < R ? words[((size_t)r * G + g) * LANES + stream] : 0u;
     };
     uint64_t lower = 0, range = ~0ull;
-    uint64_t point = (word_at(0) << 32) | word_at(1);
+    uint64_t point = ((uint64_t)word_at(0) << 32) | word_at(1);
     int cur = 2;
+    uint32_t next_word = (ABLATE & 16) ? 0u : word_at(cur);
+
+    int32_t* act0 = s_act + stream * AS;
+    int32_t* act1 = s_act + (LANES + stream) * AS;
+    // rows y_lo..y_hi of wavefront d, advanced by counters: y_hi = min(h-1,
+    // d / step) with rem = d - step * (d / step); y_lo = ceil((d - w + 1) /
+    // step) with x_lo = d - step * y_lo the column of row y_lo.
+    int y_div = 0, rem = 0, y_lo = 0, x_lo = 0;
 
     for (int d = 0; d < D; ++d) {
-        const int y_lo = max(0, (d - w + step) / step);
-        const int y_hi = min(h - 1, d / step);
-        const int y = y_lo + ((lane - y_lo) & (LANES - 1));
+        const int y_hi = min(h - 1, y_div);
+        const int y = y_lo + ((stream - y_lo) & (LANES - 1));
         const bool active = y <= y_hi;
         const int x = d - step * y;
         int sym = 0;
+        const bool busy = __any_sync(FULL, active);
+        const uint64_t scale = range >> PRECISION;
+        uint32_t quant = 0;
+        int32_t c[J];
 
-        if (active) {
-            // ---- context: spatial taps (X.8), then the raw X.8 IFCE context
-            int32_t ctx[DP];
+        if (busy) {
+            // ---- the quantile depends on the coder state only
+            quant = (ABLATE & 4) ? (uint32_t)point & QMAX : quantile(point - lower, scale);
+
+            // ---- this member's context values (X.8), without branches
 #pragma unroll
-            for (int k = 0; k < DP; ++k) {
-                int32_t v = 0;
-                if (k < n_spatial) {
-                    const int yk = y + s_tdy[k], xk = x + s_tdx[k];
-                    if (yk >= 0 && xk >= 0 && xk < w)
-                        v = (int32_t)ring[((d + s_toff[k]) & ring_mask) * LANES
-                                          + ((lane + s_tdy[k]) & (LANES - 1))] * 256;
-                } else if (k < dim) {
-                    const int kk = k - n_spatial;
-                    if (ifce_packed) {
-                        const int32_t p =
-                            ifce[(((size_t)d * ifce_rows + kk / 2) * G + g) * LANES + lane];
-                        v = (kk & 1) ? (p >> 16) : (int32_t)(int16_t)(p & 0xFFFF);
-                    } else {
-                        v = ifce[(((size_t)d * ifce_rows + kk) * G + g) * LANES + lane];
-                    }
+            for (int j = 0; j < J; ++j) {
+                if (ABLATE & 1) {
+                    c[j] = d ^ (j * T + mem);
+                    continue;
                 }
-                ctx[k] = v;
+                const bool tap_ok = y >= rymin[j] && (unsigned)(x + rdx[j]) < (unsigned)w;
+                int32_t s8 = 0;
+                if (tap_ok) s8 = ring[((d + roff[j]) & ring_mask) * LANES + rsel[j]];
+                c[j] = tap_ok ? s8 * 256 : prmt_sext(ifc[j], rsel[j]);
             }
+        }
+        // the IFCE words of the next wavefront, a wavefront ahead of use
+        load_ifce(d + 1, ifc);
 
-            // ---- int32 X.8 ARM (certified overflow-free by the encoder);
-            // a hidden layer's outputs go through this thread's s_act column
-            int32_t st0 = s_sb[0], st1 = s_sb[1];
-            int32_t mu_raw = s_bl[0], ls_raw = s_bl[1];
+        if (busy) {
+            int mu_raw, ls_raw;
+            if (ABLATE & 2) {   // every context value stays live
+                int32_t mix = 0;
 #pragma unroll
-            for (int i = 0; i < DP; ++i) {
-                st0 += s_sw[i] * ctx[i];
-                st1 += s_sw[DP + i] * ctx[i];
-            }
-            for (int l = 0; l < n_hidden; ++l) {
+                for (int j = 0; j < J; ++j) mix ^= c[j];
+                mu_raw = __shfl_sync(FULL, mix, team0) >> 6;
+                ls_raw = __shfl_sync(FULL, mix, team0 + 1) >> 8;
+            } else {
+                // ---- int32 X.8 ARM (certified overflow-free by the encoder:
+                // every partial sum of a layer is bounded by the certified
+                // sum of absolute terms, so any order is exact)
+                int32_t p0 = 0, p1 = 0;
+#pragma unroll
+                for (int j = 0; j < J; ++j) {      // stabiliser share
+                    p0 += ls[j].x * c[j];
+                    p1 += ls[j].y * c[j];
+                }
+                if (n_hidden > 0) {
+#pragma unroll
+                    for (int j = 0; j < J; ++j) act0[j * T + mem] = c[j];
+                    __syncwarp();
+                }
 #pragma unroll 1
-                for (int o = 0; o < dim; ++o) {
-                    const int4* wrow = reinterpret_cast<const int4*>(s_w + (l * DP + o) * DP);
-                    int32_t acc = s_b[l * DP + o];
+                for (int l = 0; l < n_hidden; ++l) {
+                    const int4* a4 = reinterpret_cast<const int4*>((l & 1) ? act1 : act0);
+                    const int32_t* wl = s_w + l * OP * RS;
+                    int32_t acc[J];
 #pragma unroll
+                    for (int j = 0; j < J; ++j) acc[j] = s_b[l * OP + j * T + mem];
+                    // unrolled by 2 only: a full unroll hoists every weight
+                    // load of the layer and spills registers
+#pragma unroll 2
                     for (int i4 = 0; i4 < DP / 4; ++i4) {
-                        const int4 w4 = wrow[i4];
-                        acc += w4.x * ctx[4 * i4] + w4.y * ctx[4 * i4 + 1]
-                               + w4.z * ctx[4 * i4 + 2] + w4.w * ctx[4 * i4 + 3];
+                        const int4 a = a4[i4];
+#pragma unroll
+                        for (int j = 0; j < J; ++j) {
+                            const int4 w4 =
+                                reinterpret_cast<const int4*>(wl + (j * T + mem) * RS)[i4];
+                            acc[j] += w4.x * a.x + w4.y * a.y + w4.z * a.z + w4.w * a.w;
+                        }
                     }
-                    s_act[o * LANES + lane] = max(acc, 0) >> 8;
+#pragma unroll
+                    for (int j = 0; j < J; ++j) c[j] = max(acc[j], 0) >> 8;
+                    if (l + 1 < n_hidden) {
+                        int32_t* nxt = (l & 1) ? act0 : act1;
+#pragma unroll
+                        for (int j = 0; j < J; ++j) nxt[j * T + mem] = c[j];
+                        __syncwarp();
+                    }
                 }
 #pragma unroll
-                for (int i = 0; i < DP; ++i) ctx[i] = i < dim ? s_act[i * LANES + lane] : 0;
-            }
+                for (int j = 0; j < J; ++j) {      // last-layer share
+                    p0 += ls[j].z * c[j];
+                    p1 += ls[j].w * c[j];
+                }
 #pragma unroll
-            for (int i = 0; i < DP; ++i) {
-                mu_raw += s_wl[i] * ctx[i];
-                ls_raw += s_wl[DP + i] * ctx[i];
+                for (int off = T / 2; off >= 1; off >>= 1) {
+                    p0 += __shfl_xor_sync(FULL, p0, off);
+                    p1 += __shfl_xor_sync(FULL, p1, off);
+                }
+                mu_raw = (p0 + s_bias2[0]) >> 8;   // arithmetic: X.16 -> X.8
+                ls_raw = (p1 + s_bias2[1]) >> 8;
             }
-            mu_raw = (mu_raw + st0) >> 8;   // arithmetic: X.16 -> X.8
-            ls_raw = (ls_raw + st1) >> 8;
-
             const int mu_fp = min(max(mu_raw - MU_MIN_FP, 0), N_POSSIBLE_MU - 1) + MU_MIN_FP;
             const uint32_t slope =
                 s_slope[min(max(ls_raw - LOG_SCALE_MIN_FP, 0), N_POSSIBLE_SCALE - 1)];
 
-            // ---- quantile (point - lower) / (range >> 24), clamped to 2^24 - 1
-            // (equal to the TPU kernel's 25-step restoring division)
-            const uint64_t scale = range >> PRECISION;
-            uint64_t q = (point - lower) / scale;
-            if (q > (1u << PRECISION) - 1) q = (1u << PRECISION) - 1;
-            const uint32_t quant = (uint32_t)q;
-
-            // ---- 7-step binary search: max s with left_cum(s) <= quant
-            int s = SYM_MIN;
-#pragma unroll 1
-            for (int st = 64; st >= 1; st >>= 1) {
-                const int cand = s + st;
-                if (cand <= SYM_MAX && left_cum(cand, mu_fp, slope) <= quant) s = cand;
+            // ---- symbol k = s - SYM_MIN: max k with left_cum <= quant
+            uint32_t left, prob;
+            int k;
+            if (ABLATE & 8) {
+                k = (int)(((quant ^ (uint32_t)mu_fp ^ slope) >> 17) & 127);
+                left = quant & 0xFFFF;
+                prob = 4096;
+            } else {
+                // two 8-ary rounds narrow [0, 127] to [base, base + 1]; cut
+                // point i of a round is base + i * st (i = 0 always passes)
+                int base = 0;
+#pragma unroll
+                for (int st = N_SYM / ARITY; st >= 2; st /= ARITY) {
+                    int cnt = 0;
+#pragma unroll
+                    for (int e = 0; e < EVALS; ++e) {
+                        const bool le =
+                            left_cum_32(base + (e * T + mem) * st, mu_fp, slope) <= quant;
+                        cnt += __popc((__ballot_sync(FULL, le) >> team0) & TEAM_BITS);
+                    }
+                    base += (cnt - 1) * st;
+                }
+                // left_cum at base, base + 1, base + 2 (members 0, 1, 2)
+                const uint32_t v = left_cum_32(min(base + mem, N_SYM - 1), mu_fp, slope);
+                const int up = (__ballot_sync(FULL, v <= quant) >> (team0 + 1)) & 1;
+                k = base + up;
+                left = __shfl_sync(FULL, v, team0 + up);
+                const uint32_t nxt = __shfl_sync(FULL, v, team0 + up + 1);
+                prob = k == N_SYM - 1 ? (1u << PRECISION) - left : nxt - left;
             }
-            const uint32_t left = left_cum(s, mu_fp, slope);
-            const uint32_t prob = s >= SYM_MAX ? (1u << PRECISION) - left
-                                               : left_cum(s + 1, mu_fp, slope) - left;
 
             // ---- advance and renormalise
-            lower += scale * left;
-            range = scale * prob;
-            if (range < (1ull << 32)) {
-                lower <<= 32;
-                range <<= 32;
-                point = (point << 32) | word_at(cur);
-                ++cur;
+            if (active) {
+                lower += mul_scale(left, scale);
+                range = mul_scale(prob, scale);
+                if (range < (1ull << 32)) {
+                    lower <<= 32;
+                    range <<= 32;
+                    point = (point << 32)
+                            | ((ABLATE & 16) ? (uint32_t)(point ^ (point >> 32)) : next_word);
+                    ++cur;
+                    if (!(ABLATE & 16)) next_word = word_at(cur);
+                }
+                sym = k + SYM_MIN;
+                if (mem == 0) out[((size_t)g * h + y) * w + x] = sym;
             }
-            sym = s;
-            out[((size_t)g * h + y) * w + x] = s;
         }
-        ring[(d & ring_mask) * LANES + lane] = (int8_t)sym;
-        __syncthreads();
+        if (mem == 0) ring[(d & ring_mask) * LANES + stream] = (int8_t)sym;
+
+        // advance the row range to wavefront d + 1
+        if (++rem == step) {
+            rem = 0;
+            ++y_div;
+        }
+        if (++x_lo == w) {
+            x_lo -= step;
+            ++y_lo;
+        }
+        if (ABLATE & 32) {
+            __syncwarp();
+        } else {
+            __syncthreads();
+        }
     }
 }
 
 }  // namespace
 
-// Launches one CTA per grid on `stream`. Returns the cudaError_t of the
-// launch (0 on success), or -1 when dim_padded is not this build's DP.
+// Launches one CTA of 128 * T threads per grid on `stream`. Returns the
+// cudaError_t of the launch (0 on success), or -1 when dim_padded or team
+// is not this build's DP or T, or the shared memory does not fit. The
+// kernel's shared-memory limit is raised once per library.
 extern "C" int wavefront_decode_launch(
     const void* words, const void* wtr, const void* btr, const void* stw,
     const void* stb, const void* ifce, const void* taps, void* out, int h, int w,
     int G, int R, int n_spatial, int ifce_rows, int ifce_packed, int dim,
-    int n_hidden, int dim_padded, int ring_rows, void* stream) {
-    if (dim_padded != DP || dim > DP) return -1;
-    const size_t smem = 4 * (size_t)(n_hidden * DP * DP + n_hidden * DP + 4 * DP + 4
-                                     + N_POSSIBLE_SCALE + 3 * DP + DP * LANES)
-                        + (size_t)ring_rows * LANES;
-    cudaError_t err = cudaFuncSetAttribute(wavefront_decode_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    wavefront_decode_kernel<<<G, LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+    int n_hidden, int dim_padded, int team, int ring_rows, void* stream) {
+    if (dim_padded != DP || team != T || dim > DP) return -1;
+    const size_t smem = 4 * (size_t)smem_words(n_hidden) + (size_t)ring_rows * LANES;
+    if (smem > (size_t)SMEM_LIMIT) return -1;
+    static const cudaError_t attr_err = cudaFuncSetAttribute(
+        wavefront_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (attr_err != cudaSuccess) return (int)attr_err;
+    wavefront_decode_kernel<<<G, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(words), static_cast<const int32_t*>(wtr),
         static_cast<const int32_t*>(btr), static_cast<const int32_t*>(stw),
         static_cast<const int32_t*>(stb), static_cast<const int32_t*>(ifce),

@@ -1,5 +1,6 @@
 """Wavefront range decode of `tpu`-profile latent grids (docs/tpu_profile.md):
-the CUDA kernel's wrapper, its plain PyTorch version, and the host packing.
+the CUDA kernel's wrapper, its plain PyTorch version, numpy models of the
+kernel's arithmetic shortcuts, and the host packing.
 
 Replaces coolchic_tpu/ops/pallas_decode.py: the Pallas kernel `_make_kernel`
 (built and launched by `_build`, `pl.pallas_call`). Both compute the same
@@ -9,14 +10,15 @@ each wavefront every stream decodes at most one pixel (y, x) with
 x + step*y = d, from its 9x9 causal context taps, the IFCE context, the
 int32 X.8 ARM and the integer Laplace CDF of bitstream/tpu_cdf.py.
 
-The kernel (csrc/wavefront_decode.cu) runs one CTA per grid and one thread
-per stream, with the coder state in native u64 registers, the last OFFMAX+1
-wavefronts in a shared-memory ring and one barrier per wavefront. What
-bounds it on an H100 is the serial chain of D dependent wavefronts (3834 at
-512x768), each a few thousand dependent integer instructions of one thread;
-the bytes it moves (words, IFCE context, output) take microseconds. This
-first design is simple on purpose: one CTA per grid leaves most of the 132
-SMs idle at G = 8, and PERF.md records its measured time beside its bound.
+The kernel (csrc/wavefront_decode.cu) runs one CTA per grid and a team of
+TEAM threads per stream, with the coder state in native u64 registers, the
+last OFFMAX+1 wavefronts in a shared-memory ring and one barrier per
+wavefront. What bounds it on an H100 is the serial chain of D dependent
+wavefronts (3834 at 512x768); the team splits each stream's ARM and symbol
+search, so that a wavefront costs the instructions the SM issues and the
+lockstep of the barrier rather than one thread's latency. The first design,
+one thread per stream, is kept as csrc/wavefront_decode_pr1.cu for the
+timing phase of chip_smoke.py only.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -56,6 +58,9 @@ _QMAX = (1 << PRECISION) - 1
 MAX_ARM_DIM = 64
 # Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232448
+# Threads per stream in the kernel (4 or 8; chip_smoke.py times both, and 4
+# is the faster at hop's ARM width on an H100: PERF.md).
+TEAM = 4
 
 
 def tpu_wavefront_step(w: int) -> int:
@@ -113,15 +118,25 @@ def _ring_rows(w: int) -> int:
     return r
 
 
+def _team_layout(dp: int, team: int) -> tuple[int, int, int]:
+    """(OP, RS, AS) of the .cu: hidden outputs padded to a multiple of the
+    team, and the weight and activation row strides in words (a multiple of
+    4 whose quarter is odd, so a quarter-warp's rows fall in distinct
+    banks)."""
+    def odd4(n: int) -> int:
+        return n if (n // 4) % 2 else n + 4
+
+    op = -(-dp // team) * team
+    return op, odd4(dp), odd4(-(-op // 4) * 4)
+
+
 def kernel_smem_bytes(w: int, dim: int, n_hidden: int) -> int:
-    """Dynamic shared memory of one CTA (must match the .cu layout)."""
-    dp = _kernel_dim(dim)
-    n_int = (n_hidden * dp * dp + n_hidden * dp   # hidden weights, biases
-             + dp * 2 + 2                          # last layer
-             + dp * 2 + 2                          # stabiliser
-             + N_POSSIBLE_SCALE                    # slope table
-             + 3 * dp                              # tap offsets, dy, dx
-             + dp * LANES)                         # per-thread layer outputs
+    """Dynamic shared memory of one CTA (must match smem_words in the .cu)."""
+    op, rs, as_ = _team_layout(_kernel_dim(dim), TEAM)
+    n_int = (2 * LANES * as_                      # activation rows, double buffered
+             + n_hidden * op * rs + n_hidden * op  # hidden weights, biases
+             + 4 * op + 4                          # stabiliser and last layer
+             + N_POSSIBLE_SCALE)                   # slope table
     return 4 * n_int + _ring_rows(w) * LANES
 
 
@@ -148,43 +163,76 @@ def grid_batch_limit(h: int, w: int, ifce_rows: int, R: int, G: int,
 # ---------------------------------------------------------------------------
 # The CUDA kernel: build, bind, launch.
 # ---------------------------------------------------------------------------
-_CU_SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront_decode.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_CU_SRC = _CSRC / "wavefront_decode.cu"
+# The first design (one thread per stream): built only by the timing phase
+# of chip_smoke.py, as the yardstick of the team design.
+_CU_SRC_FIRST = _CSRC / "wavefront_decode_pr1.cu"
 
 
 class _WavefrontKernel:
     """ctypes binding of csrc/wavefront_decode.cu, built with nvcc at first
-    use, one library per padded ARM width. `launches` counts kernel
-    launches (and nothing else)."""
+    use, one library per (padded ARM width, team size). `launches` counts
+    kernel launches (and nothing else).
+
+    The private `_design` ("first": the first design) and `_ablate` (the
+    -DWFD_ABLATE bits, which stub parts and decode garbage) select timing
+    variants for chip_smoke.py; the decode path never passes them."""
 
     def __init__(self) -> None:
         self.launches = 0
-        self._libs: dict[int, ctypes.CDLL] = {}
+        self._libs: dict[tuple, ctypes.CDLL] = {}
+        self._taps: dict[tuple, torch.Tensor] = {}
 
-    def lib(self, dim_padded: int) -> ctypes.CDLL:
-        if dim_padded not in self._libs:
+    def lib(self, dim_padded: int, team: int = TEAM, *, _design: str = "team",
+            _ablate: int = 0) -> ctypes.CDLL:
+        key = (dim_padded, team, _design, _ablate)
+        if key not in self._libs:
             from coolchic_tpu_torch.utils.build import build_shared_library, find_nvcc
 
+            if _design == "team":
+                src, stem = _CU_SRC, f"wavefront_decode_dp{dim_padded}_t{team}"
+                defs, n_int = [f"-DWFD_DP={dim_padded}", f"-DWFD_TEAM={team}"], 12
+            elif _design == "first":
+                src, stem = _CU_SRC_FIRST, f"wavefront_decode_first_dp{dim_padded}"
+                defs, n_int = [f"-DWFD_DP={dim_padded}"], 11
+            else:
+                raise ValueError(f"unknown kernel design {_design!r}")
+            if _ablate:
+                defs.append(f"-DWFD_ABLATE={_ablate}")
+                stem += f"_ab{_ablate}"
             path = build_shared_library(
-                _CU_SRC, f"wavefront_decode_dp{dim_padded}",
+                src, stem,
                 [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 f"-DWFD_DP={dim_padded}"], timeout=600)
+                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", *defs],
+                timeout=600)
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.wavefront_decode_launch.argtypes = [p] * 8 + [i] * 11 + [p]
+            lib.wavefront_decode_launch.argtypes = [p] * 8 + [i] * n_int + [p]
             lib.wavefront_decode_launch.restype = i
-            self._libs[dim_padded] = lib
-        return self._libs[dim_padded]
+            self._libs[key] = lib
+        return self._libs[key]
+
+    def taps_tensor(self, taps: tuple, device: torch.device) -> torch.Tensor:
+        """The (dy, dx) taps as a flat int32 tensor on `device`, uploaded once
+        per (taps, device) so that a launch does no host-to-device copy."""
+        key = (taps, device)
+        if key not in self._taps:
+            self._taps[key] = torch.tensor(taps, dtype=torch.int32,
+                                           device=device).reshape(-1)
+        return self._taps[key]
 
     def launch(self, words, wtr, btr, stw, stb, ifce, taps_t, out, *, h, w,
-               n_spatial, ifce_rows, ifce_packed, dim, n_hidden):
+               n_spatial, ifce_rows, ifce_packed, dim, n_hidden, team=TEAM,
+               _design="team", _ablate=0):
         R, G, _ = words.shape
         dp = _kernel_dim(dim)
-        err = self.lib(dp).wavefront_decode_launch(
+        team_arg = (team,) if _design == "team" else ()
+        err = self.lib(dp, team, _design=_design, _ablate=_ablate).wavefront_decode_launch(
             words.data_ptr(), wtr.data_ptr(), btr.data_ptr(), stw.data_ptr(),
             stb.data_ptr(), ifce.data_ptr(), taps_t.data_ptr(), out.data_ptr(),
             h, w, G, R, n_spatial, ifce_rows, int(ifce_packed), dim, n_hidden, dp,
-            _ring_rows(w), torch.cuda.current_stream(words.device).cuda_stream)
+            *team_arg, _ring_rows(w), torch.cuda.current_stream(words.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"wavefront_decode kernel launch failed: CUDA "
                                f"error {err}")
@@ -247,7 +295,7 @@ def wavefront_decode(words: torch.Tensor, wtr: torch.Tensor, btr: torch.Tensor,
     if not kernel_eligible(h, w, dim, n_hidden):
         raise ValueError(f"[{h}, {w}] grid with ARM width {dim} does not fit "
                          "the kernel")
-    taps_t = torch.tensor(taps, dtype=torch.int32, device=dev).reshape(-1)
+    taps_t = KERNEL.taps_tensor(taps, dev)
     out = torch.empty((words.shape[1], h, w), dtype=torch.int32, device=dev)
     KERNEL.launch(words, wtr, btr, stw, stb, ifce, taps_t, out, h=h, w=w,
                   n_spatial=len(taps), ifce_rows=rows,
@@ -408,6 +456,83 @@ def wavefront_decode_plain(words, wtr, btr, stw, stb, ifce, *, h: int, w: int,
 
     grid = store[:, :n_store].reshape(G, h + 4, wp)[:, 4:, 4:w + 4]
     return grid.to(torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# numpy models of the kernel's arithmetic shortcuts, for the tests: each
+# repeats what csrc/wavefront_decode.cu computes and reports whether the
+# bounds stated there hold, so that the tests can hold it against tpu_cdf
+# and the plain version above.
+# ---------------------------------------------------------------------------
+def _in_i32(x: np.ndarray) -> bool:
+    return bool(((x >= -(1 << 31)) & (x < (1 << 31))).all())
+
+
+def exp2_neg24_32_model(t) -> tuple[np.ndarray, bool]:
+    """exp2_neg24_32 of the kernel for t = a * b < 2^40: (exp2(-t/2^24) in
+    X.24 as int64, whether the bounds its source states hold: |r| < 2^25,
+    |r * f| < 2^49, |r * f + C * 2^24| < 2^50, each step's result in
+    int32). A step is (r * f + C * 2^24) >> 24, as the kernel computes it."""
+    t = np.asarray(t, np.int64)
+    ok = bool(((t >= 0) & (t < (1 << 40))).all())
+    f = t & _QMAX
+    q = np.minimum(t >> PRECISION, 31)
+    r = np.full(t.shape, EXP2_POLY[6], np.int64)
+    for k in range(5, -1, -1):
+        ok &= bool((np.abs(r) < (1 << 25)).all())
+        prod = r * f
+        fused = prod + (EXP2_POLY[k] << PRECISION)
+        ok &= bool((np.abs(prod) < (1 << 49)).all() and (np.abs(fused) < (1 << 50)).all())
+        r = fused >> PRECISION
+        ok &= _in_i32(r)
+    return np.clip(r, 0, 1 << PRECISION) >> q, ok
+
+
+def left_cum_32_model(k, mu_fp, slope) -> tuple[np.ndarray, bool]:
+    """left_cum_32 of the kernel for symbol k + SYM_MIN, k in [0, 127]:
+    (value, whether |m| < 2^16, slope < 2^24 and the Horner bounds hold)."""
+    k, mu_fp, slope = (np.asarray(a, np.int64) for a in (k, mu_fp, slope))
+    m = (k + SYM_MIN) * 256 - 128 - mu_fp
+    ok = bool((np.abs(m) < (1 << 16)).all() and ((slope >= 0) & (slope < (1 << 24))).all())
+    e, ok_e = exp2_neg24_32_model(np.abs(m) * slope)
+    half = e >> 1
+    cdf = np.where(m < 0, half, (1 << PRECISION) - half)
+    v = ((FREE_WEIGHT * cdf) >> PRECISION) + k * LEAK_STEP
+    return np.where(k <= 0, 0, v), ok and ok_e
+
+
+def team_search_model(quant, mu_fp, slope) -> tuple[np.ndarray, ...]:
+    """The kernel's symbol search: two 8-ary rounds (strides 16, 2; cut point
+    i of a round is evaluated by member i mod T), then left_cum at base,
+    base + 1, base + 2. Returns (symbol, left, prob)."""
+    quant = np.asarray(quant, np.int64)
+    base = np.zeros(quant.shape, np.int64)
+    for st in (16, 2):
+        cnt = np.zeros_like(base)
+        for i in range(8):
+            cnt += left_cum_32_model(base + i * st, mu_fp, slope)[0] <= quant
+        base += (cnt - 1) * st
+    v = [left_cum_32_model(np.minimum(base + i, 127), mu_fp, slope)[0] for i in range(3)]
+    up = v[1] <= quant
+    k = base + up
+    left = np.where(up, v[1], v[0])
+    prob = np.where(k == 127, (1 << PRECISION) - left, np.where(up, v[2], v[1]) - left)
+    return k + SYM_MIN, left, prob
+
+
+def quantile_model(t, scale) -> tuple[np.ndarray, np.ndarray]:
+    """quantile() of the kernel: min(t // scale, 2^24 - 1) for uint64 t and
+    scale in [2^8, 2^40), from an FP64 reciprocal estimate corrected by one
+    exact step. Returns (quotient, estimate's offset from it after the
+    clamp), the offset being -1, 0 or 1 where the source's bound holds."""
+    t = np.asarray(t, np.uint64)
+    scale = np.asarray(scale, np.uint64)
+    qd = np.minimum(t.astype(np.float64) * (1.0 / scale.astype(np.float64)), float(_QMAX))
+    q0 = qd.astype(np.uint64)
+    down = q0 * scale > t              # q0 <= 2^24 - 1: no product reaches 2^64
+    up = ~down & (q0 < _QMAX) & ((q0 + np.uint64(1)) * scale <= t)
+    q = np.where(down, q0 - np.uint64(1), np.where(up, q0 + np.uint64(1), q0))
+    return q.astype(np.int64), q0.astype(np.int64) - q.astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
