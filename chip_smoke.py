@@ -28,11 +28,22 @@ Phases, each fatal on failure:
      stream, csrc/wavefront_decode_pr1.cu), each in full (bit-exact against
      the main kernel) and with each part stubbed (-DWFD_ABLATE), in us per
      wavefront; the batch decode split into IFCE + shear, kernels and the
-     float tail.
+     float tail;
+  5. the intra encode: phase 3's first frame, written as a .ppm, encoded
+     by the port's CLI (coolchic_tpu_torch.cc_encode.main: hop, debug
+     recipe, `tpu` profile, --no_rdoq, --device cuda; exit 0 carries its
+     own decode-back checks), kernel launches counted; every grid of the
+     new file decoded by the kernel equal to the host C++ decode; one
+     training step's loss and gradients on the card against the CPU (loss
+     within 1e-5 relative, each leaf's gradient within 1e-3 in L2 norm
+     relative to the CPU's), and a TF32 run of the step on the card that
+     the tolerance must reject; ms per training step (CUDA events, median
+     over a window of 20 main-phase steps); seconds per stage, peak
+     memory, PSNR and bpp.
 
-Prints the ablation line, a {"kernels": [...]} line, then the card line, and ends with
-{"ok": true, "device": {...}}. Exits non-zero, printing no result, without
-a CUDA card or outside a checkout of the repo.
+Prints the ablation line, the encode line, a {"kernels": [...]} line, then
+the card line, and ends with {"ok": true, "device": {...}}. Exits non-zero,
+printing no result, without a CUDA card or outside a checkout of the repo.
 """
 
 from __future__ import annotations
@@ -59,6 +70,12 @@ CORE_OPS_PER_S = 67e12
 # Timing yardsticks of phase 4: (design, team) pairs, and the parts the
 # -DWFD_ABLATE bits stub (the first design has no team: 1 thread a stream).
 DESIGNS = (("team", 4), ("team", 8), ("first", 1))
+# Phase 5: one training step's gradients, card against CPU, worst leaf's
+# |diff|_2 / |cpu|_2. Full f32 sits far below it and TF32 above it: the
+# phase checks both (the TF32 run is its control). The max-norm is printed,
+# not held: a symbol near the 2^-16 probability floor has a large gradient
+# whose f32 CDF difference is off by up to 2^-24 / 2^-16 on either device.
+STEP_GRAD_TOL = 1e-3
 ABLATE_PARTS = (("taps", 1), ("arm", 2), ("div", 4), ("search", 8), ("refill", 16),
                 ("barrier", 32))
 
@@ -167,6 +184,216 @@ def split_batch_ms(batch) -> dict:
         for name, v in total.items():
             samples.setdefault(name, []).append(v)
     return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def encode_phase(dev, target_frame, workdir: Path) -> dict:
+    """Phase 5: the intra encode of one 512x768 frame at hop, `tpu` profile,
+    through the port's CLI on the card; the new file's grids decoded by the
+    kernel against the host C++ decoder; one training step's loss and
+    gradients on the card against the CPU; ms per training step."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch import cc_encode
+    from coolchic_tpu_torch.bitstream import codec
+    from coolchic_tpu_torch.bitstream.decode import _decode_items_batched, decode_video
+    from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks
+    from coolchic_tpu_torch.bitstream.headers import (
+        TPU_PROFILE_MAGIC,
+        CoolChicHeader,
+        FrameHeader,
+        VideoHeader,
+    )
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file, save_frame_data_to_file
+    from coolchic_tpu_torch.models.params import tree_from_numpy
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+    from coolchic_tpu_torch.train.encode import _target_from_frame
+    from coolchic_tpu_torch.train.loss import dist_to_db
+    from coolchic_tpu_torch.train.params import (
+        WEIGHT,
+        tree_flatten_with_path,
+        tree_leaves,
+        tree_map,
+    )
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.train import PhaseFns, TorchNoise, init_opt_state
+    from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder
+
+    src, out = workdir / "target.ppm", workdir / "out.cool"
+    save_frame_data_to_file(target_frame, str(src))
+    n_px = target_frame.n_pixels
+
+    # the encode, as a user runs it; its exit code carries the CLI's own
+    # decode-back checks (PSNR within 0.3 dB, rate within 20 %)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wfd.KERNEL.launches = 0
+    t0 = time.time()
+    rc_main = cc_encode.main(["-i", str(src), "-o", str(out), "--workdir", str(workdir),
+                              "--dec_cfg_residue", "hop", "--recipe", "debug", "--profile",
+                              "tpu", "--no_rdoq", "--lmbda", "1e-3", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = wfd.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(rc_main == 0, f"cc_encode exited {rc_main}")
+    check(launches > 0, "the encode's decode-back launched no wavefront_decode kernel")
+    stages = json.loads((workdir / "0000-encoder_stages.json").read_text())
+    with open(workdir / "0000-results_encoder.tsv") as f:
+        head, row = f.read().strip().splitlines()[:2]
+    enc = dict(zip(head.split("\t"), row.split("\t")))
+    n_bytes = out.stat().st_size
+    print(f"[5] cc_encode 512x768 hop tpu --no_rdoq: exit 0 in {wall:.1f} s, {n_bytes} "
+          f"bytes, wavefront_decode launches {launches} (decode-back)", flush=True)
+    print("[5] stages (EncoderMonitor, s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages["stages_s"].items())
+        + f"; {stages['iterations']} candidate-iterations", flush=True)
+    print(f"[5] torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+
+    # every 128-stream grid of the new file: kernel == host C++
+    rest = out.read_bytes()
+    check(rest.startswith(TPU_PROFILE_MAGIC), "the new file is not tpu-profile")
+    rest = rest[len(TPU_PROFILE_MAGIC):]
+    _, rest = VideoHeader.read(rest)
+    _, rest = FrameHeader.read(rest)
+    ch, rest = CoolChicHeader.read(rest)
+    bnn, blat = rest[:ch.nn_n_bytes], rest[ch.nn_n_bytes:ch.nn_n_bytes + ch.n_bytes_latent]
+    cfg = ch.to_config()
+    blocks = _parse_level_blocks(cfg, blat)
+    k_levels = [lv for lv in range(cfg.n_latent_grids) if blocks[lv]["n_streams"] == 128]
+    check(k_levels[:2] == [0, 1], f"128-stream levels {k_levels}")
+    outputs, routes = _decode_items_batched([(ch, bnn, blat)], dev)
+    check(routes[0]["path"] == "device", f"decode-back route {routes}")
+    _, host_grids = codec.decode_coolchic_tpu_host(ch, bnn, blat, device=dev)
+    for lv in range(cfg.n_latent_grids):
+        check(np.array_equal(outputs[0][1][lv], host_grids[lv]),
+              f"new file level {lv}: kernel decode != host C++")
+    print(f"[5] new file: levels {k_levels} are 128-stream grids; all "
+          f"{cfg.n_latent_grids} grids kernel == host C++", flush=True)
+
+    dec = decode_video(str(out), device=dev)["0"]
+    tgt = load_frame_data_from_file(str(src))
+    psnr_dec = dist_to_db(float(np.mean(np.square(dec.data - tgt.data))))
+    print(f"[5] encoder psnr {float(enc['psnr_db']):.3f} dB, rate {8 * n_bytes / n_px:.4f} "
+          f"bpp (latent estimate {float(enc['rate_latent_bpp']):.4f}); decoder psnr "
+          f"{psnr_dec:.3f} dB", flush=True)
+
+    # one training step, card against CPU: the encode's own (quantized)
+    # parameters, a main-phase step's softround + gaussian noise drawn once;
+    # then the card once more with TF32 allowed, as the control that the
+    # tolerance rejects what TF32 does
+    params, fcfg, _ = load_frame_encoder(str(workdir / "0000-frame_encoder.npz"))
+    phase = PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1).training_phases[0]
+    temp = phase.softround_temperature[0]
+    noise = TorchNoise(torch.Generator().manual_seed(0))(
+        "step", fcfg, 1, phase.quantizer_noise_type,
+        torch.tensor([phase.noise_parameter[0]]), True)
+    batched = tree_map(lambda x: np.asarray(x)[None], params)
+
+    def one_step(d):
+        like = tree_from_numpy(batched, d)
+        fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
+                       phase.dist_weight, tuple(phase.betas_model),
+                       tuple(phase.betas_latent), phase.precondition_frequency_model)
+        args = (tree_leaves(like), {k: [x.to(d) for x in v] for k, v in noise.items()},
+                temp, _target_from_frame(tgt, d), torch.full((1,), 1e-3, device=d))
+        with torch.no_grad():
+            loss = float(fns.loss(*args).loss[0])
+        return loss, [None if g is None else g.cpu().double() for g in fns.grads(*args)]
+
+    def errors(grads, ref):
+        """Worst per-leaf |g - ref|_2 / |ref|_2 (and its leaf), worst
+        per-leaf max |g - ref| / max |ref|."""
+        worst_l2, worst_max = (0.0, ""), 0.0
+        for (path, _), a, b in zip(tree_flatten_with_path(batched), grads, ref):
+            if b is None or float(b.abs().max()) == 0.0:
+                continue
+            worst_l2 = max(worst_l2, (float((a - b).norm() / b.norm()), path))
+            worst_max = max(worst_max, float((a - b).abs().max() / b.abs().max()))
+        return worst_l2, worst_max
+
+    l_cpu, g_cpu = one_step(torch.device("cpu"))
+    l_dev, g_dev = one_step(dev)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        _, g_tf32 = one_step(dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    (l2, l2_path), mx = errors(g_dev, g_cpu)
+    (l2_tf32, l2_tf32_path), mx_tf32 = errors(g_tf32, g_cpu)
+    print(f"[5] one step card vs cpu: loss {l_dev:.8f} vs {l_cpu:.8f}; gradients: worst "
+          f"leaf |diff|_2/|cpu|_2 {l2:.2e} ({l2_path}), worst max|diff|/max|cpu| {mx:.2e}; "
+          f"TF32 control {l2_tf32:.2e} ({l2_tf32_path}), {mx_tf32:.2e}; tolerance "
+          f"{STEP_GRAD_TOL:.0e} on the first", flush=True)
+    check(abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu), f"step loss card {l_dev} cpu {l_cpu}")
+    check(l2 <= STEP_GRAD_TOL, f"step gradient {l2_path}: card vs cpu {l2:.2e}")
+    check(l2_tf32 > STEP_GRAD_TOL, f"the TF32 control passes the tolerance ({l2_tf32:.2e})")
+
+    # ms per training step: a main-phase window at n = 1 on the card
+    like = tree_from_numpy(batched, dev)
+    fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
+                   phase.dist_weight, tuple(phase.betas_model), tuple(phase.betas_latent),
+                   phase.precondition_frequency_model)
+    leaves = tree_leaves(like)
+    states = init_opt_state(leaves, fns.groups, fns.hp_weight, fns.hp_latent)
+    draw = TorchNoise(torch.Generator(device=dev).manual_seed(1))
+    level = torch.full((1,), phase.noise_parameter[0], device=dev)
+    target, lmbda, lr = (_target_from_frame(tgt, dev), torch.full((1,), 1e-3, device=dev),
+                         torch.tensor(phase.lr, device=dev))
+    step_ms = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for s in range(21):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        leaves, states = fns.step(leaves, states, draw("step", fcfg, 1, "gaussian", level, True),
+                                  temp, lr, target, lmbda, refresh=(s + 1) % fns.pf == 0)
+        e1.record()
+        step_ms.append((e0, e1))
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.time() - t0) / 21
+    step_ms = [a.elapsed_time(b) for a, b in step_ms[1:]]
+    n_weight = sum(g == WEIGHT for g in fns.groups)
+    print(f"[5] training step (n = 1, 512x768 hop, {len(leaves)} leaves, {n_weight} SOAP): "
+          f"{statistics.median(step_ms):.2f} ms median of 20 (CUDA events), host "
+          f"{host_ms:.2f} ms per step over 21", flush=True)
+
+    # what the card does in a step: kernels and their summed time over 3
+    # steps (torch.profiler), against the steps' wall time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for s in range(3):
+            leaves, states = fns.step(leaves, states,
+                                      draw("step", fcfg, 1, "gaussian", level, True), temp,
+                                      lr, target, lmbda, refresh=False)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0) / 3
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    n_kernels = sum(len(v) for v in kernels.values()) / 3
+    busy_ms = sum(sum(v) for v in kernels.values()) / 3
+    profile_row = {"kernels_per_step": n_kernels, "kernel_ms_per_step": busy_ms,
+                   "wall_ms_per_step_profiled": wall_ms}
+    if n_kernels:
+        top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:5]
+        profile_row["top_kernels_ms_per_step"] = {k[:80]: sum(v) / 3 for k, v in top}
+        print(f"[5] profiled step: {n_kernels:.0f} kernels, {busy_ms:.2f} ms of kernel time "
+              f"per step against {wall_ms:.2f} ms wall (card busy {busy_ms / wall_ms:.1%}); "
+              f"top: " + "; ".join(f"{k[:60]} {sum(v) / 3:.2f} ms" for k, v in top),
+              flush=True)
+    else:
+        print("[5] profiled step: the profiler saw no device activity (not measured)",
+              flush=True)
+    return {"launches": launches, "step_ms": statistics.median(step_ms),
+            "host_step_ms": host_ms, "step_profile": profile_row,
+            "stages_s": stages["stages_s"], "peak_bytes": peak, "psnr_enc":
+            float(enc["psnr_db"]), "psnr_dec": psnr_dec, "bpp": 8 * n_bytes / n_px}
 
 
 def main() -> int:
@@ -465,12 +692,17 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
           + f"; total {sum(split.values()):.3f} ms", flush=True)
 
+    # ------------------------------------------------ 5. intra encode
+    with tempfile.TemporaryDirectory() as wd:
+        enc = encode_phase(dev, frames[0], Path(wd))
+
     kernels = [{
         "name": "wavefront_decode",
         "route": "cuda",
         "source": "coolchic_tpu_torch/csrc/wavefront_decode.cu",
         "replaces": "coolchic_tpu/ops/pallas_decode.py:437",
         "launches": launches,
+        "launches_by_path": {"decode_images": launches, "cc_encode": enc["launches"]},
         "max_abs_err": max_abs_err,
         "ms": kern1_ms,
         "plain_ms": plain1_ms,
@@ -489,6 +721,7 @@ def main() -> int:
         "batch_split_ms": split,
         "mpix_per_s": mpix / batch_ms * 1e3,
     }]
+    print(json.dumps({"encode_512x768_hop": enc, "card": card}), flush=True)
     tmp.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())

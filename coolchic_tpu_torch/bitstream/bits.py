@@ -22,6 +22,12 @@ class BitWriter:
     def n_bits(self) -> int:
         return len(self._bits)
 
+    def prepend_pad_to_bytes(self) -> tuple[bytes, int]:
+        """Zero-pad at the FRONT to a whole number of bytes (exp-Golomb NN
+        payload convention). Returns (bytes, n_padding_bits)."""
+        pad = (8 - len(self._bits) % 8) % 8
+        return self._pack([0] * pad + self._bits), pad
+
     def append_pad_to_bytes(self) -> bytes:
         """Zero-pad at the END to a whole number of bytes (header convention)."""
         pad = (8 - len(self._bits) % 8) % 8

@@ -1,4 +1,4 @@
-"""Decoding of the four neural networks from the bitstream.
+"""Serialization of the four neural networks into the bitstream.
 
 All parameters are flattened in normative order -- modules (arm, ifce,
 upsampling, synthesis), within each module all weights then all biases, each
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from coolchic_tpu_torch.bitstream.expgolomb import decode_exp_golomb
+from coolchic_tpu_torch.bitstream.expgolomb import decode_exp_golomb, encode_exp_golomb
 from coolchic_tpu_torch.bitstream.headers import MODULE_ORDER, WB_ORDER
 from coolchic_tpu_torch.core.arch import CoolChicConfig
 from coolchic_tpu_torch.models.upsampling import half_param_size
@@ -81,8 +81,40 @@ def module_param_shapes(cfg: CoolChicConfig, module: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Unflatten from the manifest order into the model param layout.
+# Flatten / unflatten between the model param layout and the manifest order.
 # ---------------------------------------------------------------------------
+def flatten_module_params(params: dict, cfg: CoolChicConfig, module: str, wb: str
+                          ) -> list[np.ndarray]:
+    """The ordered list of weight (or bias) arrays of one module of a
+    cool-chic param dict (models/*.py layouts), as numpy."""
+    def a(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+    if module == "arm":
+        arm = params["arm"]
+        out = [a(lay[wb]) for lay in arm["layers"]]
+        if cfg.linear_stabiliser_arm:
+            out.append(a(arm["stabiliser"][wb]))
+        return out
+    if module == "ifce":
+        if not cfg.flag_ifce:
+            return []
+        return [a(arm["layers"][0][wb]) for arm in params["ifce"]["arms"]]
+    if module == "upsampling":
+        ups = params["upsampling"]
+        if wb == "weight":
+            return [a(v) for v in ups["tconv_half"] + ups["conv_half"]]
+        return [a(v) for v in ups["tconv_bias"] + ups["conv_bias"]]
+    if module == "synthesis":
+        syn = params["synthesis"]
+        out = [a(syn["output_transform"][wb])]
+        if cfg.linear_stabiliser_synth:
+            out.append(a(syn["stabiliser"][wb]))
+        out.extend(a(lay[wb]) for lay in syn["layers"])
+        return out
+    raise ValueError(module)
+
+
 def unflatten_module_params(arrays: list[np.ndarray], cfg: CoolChicConfig, module: str,
                             wb: str, into: dict) -> None:
     """Writes manifest-ordered arrays of one module into the param dict."""
@@ -124,8 +156,29 @@ def unflatten_module_params(arrays: list[np.ndarray], cfg: CoolChicConfig, modul
 
 
 # ---------------------------------------------------------------------------
-# Decode
+# Encode / decode
 # ---------------------------------------------------------------------------
+def encode_network(params: dict, cfg: CoolChicConfig, q_step_shift: dict,
+                   expgol_cnt: dict) -> tuple[bytes, int]:
+    """Quantize + exp-Golomb all four modules. Returns (payload, n_pad_bits).
+
+    q_step_shift / expgol_cnt: {(module, "weight"|"bias"): value}.
+    """
+    all_q: list[int] = []
+    all_cnt: list[int] = []
+    for module in MODULE_ORDER:
+        for wb in WB_ORDER:
+            arrays = flatten_module_params(params, cfg, module, wb)
+            if not arrays:
+                continue
+            q_step = 2.0 ** q_step_shift[(module, wb)]
+            flat = np.concatenate([a.reshape(-1) for a in arrays]).astype(np.float64)
+            q = np.round(flat / q_step).astype(np.int64)
+            all_q.extend(q.tolist())
+            all_cnt.extend([expgol_cnt[(module, wb)]] * q.size)
+    return encode_exp_golomb(all_q, all_cnt)
+
+
 def decode_network(payload: bytes, cfg: CoolChicConfig, q_step_shift: dict,
                    expgol_cnt: dict, n_pad_bits: int) -> dict:
     """Decode NN parameters. Returns a model param dict (numpy arrays):

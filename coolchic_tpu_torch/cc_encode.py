@@ -1,0 +1,205 @@
+"""Encode one intra frame of an image or video with the PyTorch port.
+
+    python -m coolchic_tpu_torch.cc_encode -i img.ppm -o out.cool \\
+        --dec_cfg_residue hop --lmbda 1e-3 --no_rdoq [--profile tpu] [--device cpu]
+
+The I-frame counterpart of the repo's cc_encode.py: the same 3-level
+configuration (argument defaults < config file or operating-point name
+given by --dec_cfg_residue < explicit command line), the same recipes and
+bitstream profiles, `--device` (default cuda) in place of `--cpu`. Every
+encode is decoded back by the port's own decoder; a PSNR more than 0.3 dB
+off the encoder's, or a real rate more than 20 % off its estimate, exits
+non-zero.
+
+RDOQ is not ported yet, so the CLI refuses to run without --no_rdoq (an
+encode must not silently differ from the JAX CLI's default). Not ported
+yet either: P/B frames, --tune wasserstein, archi.txt and the detailed logs.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+from coolchic_tpu_torch.utils.configfile import ConfigArgParser
+
+# Reference defaults (cc_encode.py:160-330) = the intra hop operating point.
+DEC_DEFAULTS = {
+    "layers_synthesis_residue": "48-1-linear-relu,X-1-linear-none,"
+                                "X-3-residual-relu,X-3-residual-none/stabiliser",
+    "arm_residue": "14,2/stabiliser",
+    "output_feature_ifce_residue": 6,
+    "ifce_resolution_residue": "0-2",
+    "hyperlatent_resolution_residue": "auto",
+    "latent_resolution_residue": "auto",
+    "ups_k_size_residue": 8,
+    "ups_preconcat_k_size_residue": 7,
+}
+
+
+def build_parser() -> ConfigArgParser:
+    p = ConfigArgParser(description=__doc__)
+    # -------- not in configuration files
+    p.add("-i", "--input", required=True, help="png / ppm / yuv input")
+    p.add("-o", "--output", default="./bitstream.cool", help="output .cool bitstream")
+    p.add("--nobitstream", action="store_true", help="don't write a bitstream")
+    p.add("--workdir", default=None, help="working directory (decoded frame etc.)")
+    p.add("--lmbda", type=float, default=1e-3, help="rate constraint lambda")
+    p.add("--print_detailed_struct", action="store_true")
+    p.add("--intra_pos", default="0", help='intra display positions, e.g. "0,4-7,-2"')
+    p.add("--p_pos", default="", help="P-frame display positions, same format")
+    p.add("--n_frames", type=int, default=1)
+    p.add("--frame_offset", type=int, default=0,
+          help="skip the first N frames of the video")
+    p.add("--coding_idx", type=int, default=0,
+          help="index (in coding order) of the frame to code")
+    p.add("--profile", default="ref", choices=["ref", "tpu"],
+          help="bitstream profile: ref = reference bit-compatible, "
+               "tpu = parallel-stream latents (docs/tpu_profile.md)")
+    p.add("--seed", type=int, default=0)
+    p.add("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    p.add("-v", "--verbose", action="count", default=1)
+    # -------- configuration-file sources
+    p.add("--dec_cfg_residue", default="hop",
+          help="intra decoder: operating point name (lop/mop/hop/vhop) or cfg "
+               "file path")
+    # -------- encoder-side (overridable from cfg files)
+    p.add("--start_lr", type=float, default=1e-2)
+    p.add("--n_itr", type=int, default=int(1e4),
+          help="iterations of the main training stage")
+    p.add("--tune", default="mse", choices=["mse"])
+    p.add("--debug", action="store_true", help="extremely quick training")
+    p.add("--recipe", default="auto",
+          choices=["auto", "intra", "debug", "measure_speed"])
+    p.add("--no_rdoq", action="store_true", help="skip rate-distortion-optimized "
+          "quantization of the NN parameters (required: RDOQ is not ported)")
+    # -------- decoder-side architecture (overridable from cfg files)
+    for key, default in DEC_DEFAULTS.items():
+        p.add(f"--{key}", type=type(default), default=default)
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.no_rdoq:
+        raise SystemExit("cc_encode: RDOQ is not ported yet, and an encode without "
+                         "it differs from the JAX CLI's default; pass --no_rdoq")
+
+    from coolchic_tpu_torch.core.device import resolve_device
+    from coolchic_tpu_torch.train.presets import AVAILABLE_PRESETS
+    from coolchic_tpu_torch.train.video import encode_one_frame
+    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
+    from coolchic_tpu_torch.utils.parsecli import (
+        intra_operating_points,
+        parse_frame_positions,
+    )
+
+    device = resolve_device(args.device)
+    workdir = args.workdir or os.path.join(os.path.dirname(args.output) or ".", "workdir")
+    os.makedirs(workdir, exist_ok=True)
+
+    intra_pos = parse_frame_positions(args.intra_pos, args.n_frames)
+    p_pos = parse_frame_positions(args.p_pos, args.n_frames)
+    seq_name = os.path.splitext(os.path.basename(args.input))[0]
+    cs = CodingStructure(n_frames=args.n_frames, intra_pos=intra_pos, p_pos=p_pos,
+                         seq_name=seq_name, frame_offset=args.frame_offset)
+    if args.print_detailed_struct:
+        print(cs.pretty_string(), flush=True)
+    frame = cs.get_frame_from_coding_order(args.coding_idx)
+    if frame is None:
+        print(f"no frame with coding_idx {args.coding_idx}")
+        return 1
+    if frame.frame_type != "I":
+        raise SystemExit(f"cc_encode: {frame.frame_type} frames are not encoded by "
+                         "the port yet (I only)")
+
+    parser.apply_config(args, args.dec_cfg_residue, table=intra_operating_points(),
+                        suffix="_residue")
+    with open(os.path.join(workdir, "param.txt"), "w") as f:
+        f.write(parser.format_values())
+
+    recipe = args.recipe
+    if args.debug:
+        recipe = "debug"
+    elif recipe == "auto":
+        recipe = "intra"
+    preset = AVAILABLE_PRESETS[recipe](
+        lmbda=args.lmbda, start_lr=args.start_lr, itr_main_training=args.n_itr,
+        dist_weight={"mse": 1.0})
+
+    cfg_args = {"residue": {
+        k: str(getattr(args, k + "_residue")) for k in (
+            "latent_resolution", "hyperlatent_resolution", "arm", "output_feature_ifce",
+            "ifce_resolution", "layers_synthesis", "ups_k_size", "ups_preconcat_k_size")}}
+
+    res = encode_one_frame(frame, cs, args.input, workdir, preset, cfg_args,
+                           seed=args.seed, verbose=args.verbose > 0, tune=args.tune,
+                           rdoq=False, profile=args.profile, device=device)
+
+    if args.nobitstream:
+        print(f"--nobitstream: skipped writing {args.output} "
+              f"(psnr {res['logs'].psnr_db:.3f} dB)")
+        return 0
+
+    mode = "wb" if frame.coding_order == 0 else "ab"
+    with open(args.output, mode) as f:
+        f.write(res["payload"])
+    print(f"wrote {len(res['payload'])} bytes to {args.output} "
+          f"(psnr {res['logs'].psnr_db:.3f} dB)")
+
+    monitor = res["monitor"]
+    with monitor.timed("decode_back"):
+        rc = verify_decode_back(args, frame, res, device)
+    with open(os.path.join(workdir, f"{frame.display_order:04d}-encoder_stages.json"),
+              "w") as f:
+        json.dump({"stages_s": monitor.phase_time_sec, "iterations":
+                   monitor.iterations_counter, "peak_device_bytes":
+                   monitor.peak_device_bytes, "device": str(device)}, f)
+    if args.verbose > 0:
+        print(monitor.report(), flush=True)
+    return rc
+
+
+def verify_decode_back(args, frame, res, device) -> int:
+    """Decode the file back with the port's decoder (reference
+    cc_encode.py:447-504): decoder PSNR within 0.3 dB of the encoder's,
+    real rate within 20 % of the encoder's estimate (latent + NN)."""
+    import numpy as np
+
+    from coolchic_tpu_torch.bitstream.decode import decode_video
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.train.loss import dist_to_db
+
+    decoded = decode_video(args.output, max_decoding_order=args.coding_idx, device=device)
+    dec = decoded[str(frame.display_order)]
+    original = load_frame_data_from_file(args.input,
+                                         frame.display_order + args.frame_offset)
+    if isinstance(dec.data, dict):
+        n = {k: v.size for k, v in original.data.items()}
+        mse = sum(float(np.mean(np.square(dec.data[k] - original.data[k]))) * n[k]
+                  for k in n) / sum(n.values())
+    else:
+        mse = float(np.mean(np.square(np.asarray(dec.data, np.float32)
+                                      - np.asarray(original.data, np.float32))))
+    psnr_dec = dist_to_db(mse)
+    rate_dec_bpp = 8 * res["n_bytes"] / original.n_pixels
+
+    psnr_enc = float(res["logs"].psnr_db)
+    est_bpp = float(res["est_rate_bpp"])
+    print(f"decoder check: psnr {psnr_dec:.3f} dB (encoder {psnr_enc:.3f}), "
+          f"rate {rate_dec_bpp:.4f} bpp (encoder estimate {est_bpp:.4f})")
+    if abs(psnr_dec - psnr_enc) > 0.3:
+        print(f"ERROR: encoder/decoder PSNR diverge by "
+              f"{abs(psnr_dec - psnr_enc):.3f} dB (> 0.3 dB)", file=sys.stderr)
+        return 2
+    if est_bpp > 0 and abs(rate_dec_bpp - est_bpp) / est_bpp > 0.2:
+        print(f"ERROR: real rate {rate_dec_bpp:.4f} bpp diverges from encoder "
+              f"estimate {est_bpp:.4f} by more than 20%", file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

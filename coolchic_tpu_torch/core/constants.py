@@ -59,6 +59,15 @@ def non_zero_pixel_ctx_index(n_spatial_ctx: int) -> np.ndarray:
     return possible[order][:n_spatial_ctx]
 
 
+def ctx_row_col_offsets(n_spatial_ctx: int) -> list[tuple[int, int]]:
+    """(dy, dx) offsets of each context pixel relative to the coded pixel:
+    index i of the flattened 9x9 window sits at (i // 9 - 4, i % 9 - 4)."""
+    half = (MAX_ARM_MASK_SIZE - 1) // 2
+    idx = non_zero_pixel_ctx_index(n_spatial_ctx)
+    return [(int(i) // MAX_ARM_MASK_SIZE - half, int(i) % MAX_ARM_MASK_SIZE - half)
+            for i in idx]
+
+
 # ---------------------------------------------------------------------------
 # Fixed-point bitstream arithmetic (decoder spec).
 # ---------------------------------------------------------------------------

@@ -66,5 +66,12 @@ def convert_444_to_420(yuv444: np.ndarray) -> dict:
     return {"y": y, "u": uv[:, 0:1], "v": uv[:, 1:2]}
 
 
+def convert_420_to_444(yuv420: dict) -> np.ndarray:
+    """U/V are nearest-upsampled x2."""
+    u = np.repeat(np.repeat(yuv420["u"], 2, axis=-2), 2, axis=-1)
+    v = np.repeat(np.repeat(yuv420["v"], 2, axis=-2), 2, axis=-1)
+    return np.concatenate([yuv420["y"], u, v], axis=1)
+
+
 def yuv_dict_clamp(yuv: dict, lo: float, hi: float) -> dict:
     return {k: np.clip(v, lo, hi) for k, v in yuv.items()}

@@ -1,4 +1,4 @@
-"""Convolutional synthesis transform (forward).
+"""Convolutional synthesis transform.
 
 Small conv stack parsed from "<out>-<k>-<linear|residual>-<none|relu>" layer
 specs, with replicate padding, an optional 1x1 linear stabiliser branch over
@@ -10,6 +10,8 @@ coolchic_tpu/models/synthesis.py.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -43,31 +45,103 @@ class Synthesis(nn.Module):
 
 def synthesis_batched(mods: list[Synthesis], x: torch.Tensor) -> torch.Tensor:
     """G images, each with its own Synthesis: [G, C_in, H, W] ->
-    [G, C_out, H, W]. The G images run as one grouped conv per layer (group
-    g = image g), so the batch costs one launch per layer."""
-    G = x.shape[0]
+    [G, C_out, H, W]."""
     m0 = mods[0]
 
-    def conv(inp, ws, bs, k):
-        c_in = inp.shape[1]
-        w = torch.cat(list(ws), dim=0)                 # [G*C_out, C_in, k, k]
-        b = torch.cat(list(bs), dim=0)
-        y = conv2d_replicate(inp.reshape(1, G * c_in, *inp.shape[-2:]), w, b,
-                             padding=(k - 1) // 2, groups=G)
-        return y.reshape(G, -1, *y.shape[-2:])
+    def wb(w, b):
+        return {"weight": torch.stack(list(w)), "bias": torch.stack(list(b))}
 
+    params = {
+        "layers": [wb([m.weights[j] for m in mods], [m.biases[j] for m in mods])
+                   for j in range(len(m0.specs))],
+        "output_transform": wb([m.ot_weight for m in mods], [m.ot_bias for m in mods]),
+    }
+    if m0.stab_weight is not None:
+        params["stabiliser"] = wb([m.stab_weight for m in mods],
+                                  [m.stab_bias for m in mods])
+    return synthesis_apply(params, m0.specs, x)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-image conv: x [G, C_in, H, W], w [G, C_out, C_in, k, k], b
+    [G, C_out] -> [G, C_out, H, W], as one grouped conv (group g = image
+    g), so the batch costs one launch per layer."""
+    G, c_in = x.shape[:2]
+    k = w.shape[-1]
+    y = conv2d_replicate(x.reshape(1, G * c_in, *x.shape[-2:]),
+                         w.reshape(-1, *w.shape[2:]), b.reshape(-1),
+                         padding=(k - 1) // 2, groups=G)
+    return y.reshape(G, -1, *y.shape[-2:])
+
+
+def synthesis_apply(params: dict, specs, x: torch.Tensor) -> torch.Tensor:
+    """[G, C_in, H, W] -> [G, C_out, H, W] with per-image params (every leaf
+    [G, ...]) in the JAX package's layout; `specs` is
+    CoolChicConfig.parsed_synthesis. Differentiable in the params and x."""
     y = x
-    for j, (_, k, mode, non_linearity) in enumerate(m0.specs):
-        z = conv(y, [m.weights[j] for m in mods], [m.biases[j] for m in mods], k)
+    for lay, (_, _, mode, non_linearity) in zip(params["layers"], specs):
+        z = _conv(y, lay["weight"], lay["bias"])
         if mode == "residual":
             z = z + y
         if non_linearity == "relu":
             z = torch.relu(z)
         y = z
 
-    if m0.stab_weight is not None:
-        n_in_stab = m0.stab_weight.shape[1]
-        y = y + conv(x[:, :n_in_stab], [m.stab_weight for m in mods],
-                     [m.stab_bias for m in mods], 1)
+    if "stabiliser" in params:
+        n_in_stab = params["stabiliser"]["weight"].shape[2]
+        y = y + _conv(x[:, :n_in_stab], params["stabiliser"]["weight"],
+                      params["stabiliser"]["bias"])
 
-    return conv(y, [m.ot_weight for m in mods], [m.ot_bias for m in mods], 1)
+    ot = params["output_transform"]
+    return _conv(y, ot["weight"], ot["bias"])
+
+
+def _conv_init(generator: torch.Generator, in_ft: int, out_ft: int, k: int,
+               residual: bool, device) -> dict:
+    if residual:
+        w = torch.zeros((out_ft, in_ft, k, k), dtype=torch.float32, device=device)
+    else:
+        sqrt_k = math.sqrt(1.0 / (in_ft * k * k))
+        w = (torch.rand((out_ft, in_ft, k, k), generator=generator,
+                        dtype=torch.float32, device=device) - 0.5) \
+            * 2.0 * sqrt_k / out_ft**2
+    return {"weight": w, "bias": torch.zeros((out_ft,), dtype=torch.float32,
+                                             device=device)}
+
+
+def output_transform_init(out_ft: int, img_min_max: torch.Tensor | None = None,
+                          device: torch.device | str = "cpu") -> dict:
+    """Identity 1x1 conv, or diag(max-min) + min when image stats are given."""
+    if img_min_max is None:
+        w = torch.eye(out_ft, dtype=torch.float32, device=device)
+        b = torch.zeros((out_ft,), dtype=torch.float32, device=device)
+    else:
+        mm = torch.as_tensor(img_min_max, dtype=torch.float32, device=device)
+        mn, mx = mm[:, 0], mm[:, 1]
+        w = torch.diag(mx - mn)
+        b = mn.clone()
+    return {"weight": w.reshape(out_ft, out_ft, 1, 1), "bias": b}
+
+
+def synthesis_init(generator: torch.Generator, cfg: CoolChicConfig,
+                   img_min_max: torch.Tensor | None = None,
+                   device: torch.device | str = "cpu") -> dict:
+    """One image's synthesis params (coolchic_tpu/models/synthesis.py
+    layout). Random draws come from `generator`: the streams differ from
+    the JAX package's PRNG."""
+    out_ft_final = cfg.synthesis_out_ft
+    params: dict = {"output_transform": output_transform_init(out_ft_final,
+                                                              img_min_max, device)}
+    if cfg.linear_stabiliser_synth:
+        n_in_stab = (cfg.input_feature_synthesis // 2 if cfg.flag_common_randomness
+                     else cfg.input_feature_synthesis)
+        params["stabiliser"] = _conv_init(generator, n_in_stab, out_ft_final, 1,
+                                          False, device)
+    layers = []
+    in_ft = cfg.input_feature_synthesis
+    for out_ft, k, mode, _ in cfg.parsed_synthesis:
+        layers.append(_conv_init(generator, in_ft, out_ft, k, mode == "residual",
+                                 device))
+        in_ft = out_ft
+    params["layers"] = layers
+    return params

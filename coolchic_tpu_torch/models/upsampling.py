@@ -1,4 +1,4 @@
-"""Learned pyramid upsampling with symmetric separable kernels (forward).
+"""Learned pyramid upsampling with symmetric separable kernels.
 
 Each x2 step applies (a) a transposed conv with an even symmetric separable
 kernel to the accumulated coarse stack and (b) an odd symmetric separable
@@ -25,6 +25,12 @@ import torch
 from torch import nn
 
 from coolchic_tpu_torch.ops.resize import interpolate_x2
+
+
+# Half of the symmetric bicubic x2 kernel used as the >=8 taps init
+# (normative init constant, reference upsampling.py:266).
+_BICUBIC_HALF = np.array([0.0351562, 0.1054687, -0.2617187, -0.8789063], dtype=np.float32)
+_BILINEAR_HALF = np.array([0.25, 0.75], dtype=np.float32)
 
 
 def half_param_size(target_k_size: int) -> int:
@@ -124,20 +130,63 @@ class Upsampling(nn.Module):
 def upsampling_batched(mods: list[Upsampling], grids: list[torch.Tensor]
                        ) -> torch.Tensor:
     """G images, each with its own Upsampling: latent grids (largest first,
-    each [G, H_i, W_i]) -> dense [G, C, H, W] stack. Output channel c
-    corresponds to input grid c."""
+    each [G, H_i, W_i]) -> dense [G, C, H, W] stack."""
     m0 = mods[0]
-    n_ups = len(m0.tconv_half)
+    return upsampling_apply(
+        [torch.stack([m.tconv_half[j] for m in mods]) for j in range(len(m0.tconv_half))],
+        [torch.stack([m.conv_half[j] for m in mods]) for j in range(len(m0.conv_half))],
+        grids, m0.ups_k_size, m0.ups_preconcat_k_size)
+
+
+def upsampling_apply(tconv_half: list[torch.Tensor], conv_half: list[torch.Tensor],
+                     grids: list[torch.Tensor], ups_k_size: int,
+                     ups_preconcat_k_size: int) -> torch.Tensor:
+    """Learned upsampling of G images at once, differentiable in the half
+    kernels: per x2 step j, tconv_half[j] and conv_half[j] are [G, hk];
+    latent grids (largest first, each [G, H_i, W_i]) -> dense [G, C, H, W].
+    Output channel c corresponds to input grid c (reference ordering)."""
+    n_ups = len(tconv_half)
     rev = list(reversed(grids))
     acc = rev[0][:, None]                                  # [G, 1, h, w]
     for idx, target in enumerate(rev[1:]):
         j = idx % n_ups
-        x = _tconv_x2(acc, torch.stack([m.tconv_half[j] for m in mods]), m0.ups_k_size)
+        x = _tconv_x2(acc, tconv_half[j], ups_k_size)
         x = x[:, :, : target.shape[-2], : target.shape[-1]]
-        high = _preconcat(target[:, None], torch.stack([m.conv_half[j] for m in mods]),
-                          m0.ups_preconcat_k_size)
+        high = _preconcat(target[:, None], conv_half[j], ups_preconcat_k_size)
         acc = torch.cat([high, x], dim=1)
     return acc
+
+
+def upsampling_init(ups_k_size: int, ups_preconcat_k_size: int, n_ups: int,
+                    device: torch.device | str = "cpu") -> dict:
+    """One image's upsampling params in the JAX package's layout
+    (coolchic_tpu/models/upsampling.py:upsampling_init). The biases are
+    carried in the bitstream but take no part in the forward."""
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    zero = np.zeros((1,), dtype=np.float32)
+    return {
+        "tconv_half": [t(tconv_half_init(ups_k_size)) for _ in range(n_ups)],
+        "tconv_bias": [t(zero) for _ in range(n_ups)],
+        "conv_half": [t(preconcat_half_init(ups_preconcat_k_size)) for _ in range(n_ups)],
+        "conv_bias": [t(zero) for _ in range(n_ups)],
+    }
+
+
+def tconv_half_init(k_size: int) -> np.ndarray:
+    assert k_size >= 4 and k_size % 2 == 0, f"ups kernel must be even >= 4, got {k_size}"
+    core = _BILINEAR_HALF if k_size < 8 else _BICUBIC_HALF
+    half = np.zeros((half_param_size(k_size),), dtype=np.float32)
+    half[len(half) - len(core):] = core
+    return half
+
+
+def preconcat_half_init(k_size: int) -> np.ndarray:
+    assert k_size % 2 == 1, f"preconcat kernel must be odd, got {k_size}"
+    half = np.zeros((half_param_size(k_size),), dtype=np.float32)
+    half[-1] = 1.0  # Dirac after symmetrization
+    return half
 
 
 def fixed_upsampling(grids: list[torch.Tensor], mode: str = "bicubic") -> torch.Tensor:

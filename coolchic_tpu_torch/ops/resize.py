@@ -70,6 +70,14 @@ def _nearest_index_np(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
+@lru_cache(maxsize=256)
+def _on(fn, in_size: int, out_size: int, device: torch.device, *mode) -> torch.Tensor:
+    """fn's table for (in_size, out_size[, mode]) on `device`, made once: a
+    host-to-card copy waits for the card, so the training step must not
+    make one per call."""
+    return torch.as_tensor(fn(in_size, out_size, *mode), device=device)
+
+
 def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str) -> torch.Tensor:
     """Resize ``x`` ([..., H, W]) to ``size`` with torch-interpolate
     semantics (align_corners=False for bilinear/bicubic)."""
@@ -80,13 +88,15 @@ def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str) -> torch.Tens
         return x
     if mode == "nearest":
         if (h_out, w_out) == (2 * h_in, 2 * w_in):
-            return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
-        iy = torch.as_tensor(_nearest_index_np(h_in, h_out), device=x.device)
-        ix = torch.as_tensor(_nearest_index_np(w_in, w_out), device=x.device)
+            lead = x.shape[:-2]
+            y = x[..., :, None, :, None].expand(*lead, h_in, 2, w_in, 2)
+            return y.reshape(*lead, h_out, w_out)
+        iy = _on(_nearest_index_np, h_in, h_out, x.device)
+        ix = _on(_nearest_index_np, w_in, w_out, x.device)
         return x[..., iy, :][..., :, ix]
 
-    wy = torch.as_tensor(_resize_matrix_np(h_in, h_out, mode), device=x.device)
-    wx = torch.as_tensor(_resize_matrix_np(w_in, w_out, mode), device=x.device)
+    wy = _on(_resize_matrix_np, h_in, h_out, x.device, mode)
+    wx = _on(_resize_matrix_np, w_in, w_out, x.device, mode)
     # [..., H_in, W_in] -> [..., H_out, W_in] -> [..., H_out, W_out]
     y = torch.einsum("oh,...hw->...ow", wy, x)
     return torch.einsum("ow,...hw->...ho", wx, y)

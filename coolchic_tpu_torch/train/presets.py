@@ -1,0 +1,189 @@
+"""Encoding presets: warm-up tournaments + training phase schedules.
+
+All hyperparameters mirror the reference presets
+(coolchic/training/presets.py:299-571) through the JAX package's copy
+(coolchic_tpu/train/presets.py): intra (2 warm-up stages of 5 then 2
+candidates, softround/gaussian main phase with temperature 0.35->0.08 and
+noise 0.22->0.15, lambda-dependent warm-up noise, 500-iteration hardround
+fine-tune at lr 1e-4), debug and measure_speed. The inter preset waits for
+the port's P/B frames.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
+
+
+@dataclass
+class TrainerPhase:
+    lmbda: float
+    lr: float = 1e-2
+    betas_model: Tuple[float, float] = (0.95, 0.95)
+    betas_latent: Tuple[float, float] = (0.9, 0.999)
+    precondition_frequency_model: int = 10
+    max_itr: int = 5000
+    freq_valid: int = 100
+    patience: int = 10000
+    schedule_lr: bool = False
+    softround_temperature: Tuple[float, float] = (0.3, 0.3)
+    noise_parameter: Tuple[float, float] = (1.0, 1.0)
+    quantizer_noise_type: str = "kumaraswamy"
+    quantizer_type: str = "softround"
+    dist_weight: Dict[str, float] = field(default_factory=lambda: {"mse": 1.0})
+
+
+@dataclass
+class WarmupPhase:
+    candidates: int
+    training_phase: TrainerPhase
+
+
+@dataclass
+class Warmup:
+    phases: List[WarmupPhase] = field(default_factory=list)
+
+    def total_iterations(self) -> int:
+        return sum(p.candidates * p.training_phase.max_itr for p in self.phases)
+
+
+@dataclass
+class Preset:
+    lmbda: float
+    start_lr: float
+    itr_main_training: int
+    precondition_frequency_model: int = 10
+    preset_name: str = ""
+    dist_weight: Dict[str, float] = field(default_factory=lambda: {"mse": 1.0})
+    warmup: Warmup = field(default_factory=Warmup, init=False)
+    training_phases: List[TrainerPhase] = field(default_factory=list, init=False)
+
+    def __post_init__(self):
+        # Base hook so the dataclass-generated __init__ dispatches to the
+        # concrete preset's __post_init__ (subclasses are not re-decorated).
+        pass
+
+
+def _intra_warmup_noise_level(lmbda: float) -> float:
+    """λ-dependent warm-up init noise (reference training/presets.py:311)."""
+    return (-0.432 * math.log10(lmbda) + 0.747) / 10.0
+
+
+class PresetIntra(Preset):
+    def __post_init__(self):
+        self.preset_name = "intra"
+        if self.itr_main_training < 2000:
+            raise ValueError("intra preset requires --n_itr >= 2000")
+
+        init_noise_level = _intra_warmup_noise_level(self.lmbda)
+
+        iter_ste_training = 500
+        iter_core_training = self.itr_main_training - iter_ste_training
+
+        wu_n_iter = 400
+        if self.itr_main_training < 4000:
+            wu_n_iter = 50
+        elif self.itr_main_training < 9000:
+            wu_n_iter = 100
+        elif self.itr_main_training < 12000:
+            wu_n_iter = 200
+
+        wu_stages = []
+        candidates = 5
+        for _ in range(2):
+            wu_stages.append(WarmupPhase(
+                candidates=candidates,
+                training_phase=TrainerPhase(
+                    lr=self.start_lr, max_itr=wu_n_iter, freq_valid=100,
+                    patience=wu_n_iter, schedule_lr=False,
+                    softround_temperature=(0.35, 0.35),
+                    noise_parameter=(init_noise_level, init_noise_level),
+                    quantizer_noise_type="gaussian", quantizer_type="softround",
+                    lmbda=self.lmbda, dist_weight={"mse": 1.0},
+                    betas_latent=(0.725, 0.97), betas_model=(0.95, 0.95),
+                    precondition_frequency_model=1,
+                ),
+            ))
+            iter_core_training -= candidates * wu_n_iter
+            candidates = 2
+        self.warmup = Warmup(wu_stages)
+
+        self.training_phases = [
+            TrainerPhase(
+                lr=self.start_lr, max_itr=iter_core_training, patience=5000,
+                schedule_lr=True, quantizer_type="softround",
+                quantizer_noise_type="gaussian",
+                softround_temperature=(0.35, 0.08), noise_parameter=(0.22, 0.15),
+                lmbda=self.lmbda, dist_weight=self.dist_weight,
+                betas_latent=(0.9, 0.999), betas_model=(0.95, 0.95),
+                precondition_frequency_model=10,
+            ),
+            TrainerPhase(
+                lr=1.0e-4, max_itr=iter_ste_training, schedule_lr=True,
+                quantizer_type="hardround", quantizer_noise_type="none",
+                lmbda=self.lmbda, dist_weight=self.dist_weight,
+                betas_latent=(0.9, 0.999), betas_model=(0.95, 0.95),
+                precondition_frequency_model=10,
+            ),
+        ]
+
+
+class PresetDebug(Preset):
+    """Very fast schedule, for testing the plumbing only.
+
+    NOTE: the schedule is FIXED at 50+10 iterations; `itr_main_training` is
+    deliberately ignored so `--recipe debug` stays fast regardless of the
+    CLI's 10k default. A tool that wants a debug-shaped preset at a real
+    budget must override `training_phases[0].max_itr` itself (see
+    tools/ab_rdoq_modules.py)."""
+
+    def __post_init__(self):
+        self.preset_name = "debug"
+        self.training_phases = [
+            TrainerPhase(
+                lr=self.start_lr, max_itr=50, patience=100000, schedule_lr=True,
+                quantizer_type="softround", quantizer_noise_type="gaussian",
+                softround_temperature=(0.35, 0.08), noise_parameter=(0.22, 0.15),
+                lmbda=self.lmbda, dist_weight=self.dist_weight,
+            ),
+            TrainerPhase(
+                lr=1e-4, max_itr=10, patience=10, quantizer_type="ste",
+                quantizer_noise_type="none", softround_temperature=(1e-4, 1e-4),
+                noise_parameter=(1.0, 1.0), lmbda=self.lmbda,
+                dist_weight=self.dist_weight,
+            ),
+        ]
+        self.warmup = Warmup([
+            WarmupPhase(candidates=3, training_phase=TrainerPhase(max_itr=10, lmbda=self.lmbda)),
+            WarmupPhase(candidates=2, training_phase=TrainerPhase(max_itr=10, lmbda=self.lmbda)),
+        ])
+
+
+class PresetMeasureSpeed(Preset):
+    def __post_init__(self):
+        self.preset_name = "measure_speed"
+        self.training_phases = [
+            TrainerPhase(
+                lr=self.start_lr, max_itr=self.itr_main_training, patience=5000,
+                schedule_lr=True, quantizer_type="softround",
+                quantizer_noise_type="gaussian",
+                softround_temperature=(0.3, 0.1), noise_parameter=(0.25, 0.1),
+                lmbda=self.lmbda, dist_weight=self.dist_weight,
+            ),
+        ]
+        self.warmup = Warmup([
+            WarmupPhase(candidates=1, training_phase=TrainerPhase(
+                lr=self.start_lr, max_itr=1, freq_valid=1, patience=100000,
+                schedule_lr=False, softround_temperature=(0.3, 0.3),
+                noise_parameter=(2.0, 2.0), quantizer_noise_type="kumaraswamy",
+                quantizer_type="softround", lmbda=self.lmbda, dist_weight={"mse": 1.0},
+            )),
+        ])
+
+
+AVAILABLE_PRESETS = {
+    "intra": PresetIntra,
+    "debug": PresetDebug,
+    "measure_speed": PresetMeasureSpeed,
+}

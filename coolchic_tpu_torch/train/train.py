@@ -1,0 +1,267 @@
+"""The overfitting training step (the "encoder"), its schedules and its
+bookkeeping.
+
+One step = forward with the drawn noise, autograd backward, global-norm clip
+of the weight group at 0.1, one SOAP step per leaf (network weights) or
+Adam (latents), and the QR eigenbasis refresh on every
+`precondition_frequency`-th step of a validation window. Everything is
+batched over a leading axis of G images (parallel/encode_batch.py drives
+the windows); the host reads losses only at the validation points.
+
+Reference parity: coolchic/training/train.py (per-group optimizers, cosine
+LR stepping once per validation, linear temperature & noise schedules,
+patience that reloads the best model when schedule_lr is on), through
+coolchic_tpu/train/train.py:_make_fns_impl, whose lax.scan windows become a
+Python loop of steps here.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from coolchic_tpu_torch.core.quantizer import sample_noise
+from coolchic_tpu_torch.models.frame import FrameConfig, frame_encoder_forward
+from coolchic_tpu_torch.train.loss import LossOutput, dist_to_db, loss_function
+from coolchic_tpu_torch.train.params import (
+    FROZEN,
+    WEIGHT,
+    group_tree,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+from coolchic_tpu_torch.train.soap import (
+    SoapHyperParams,
+    soap_init_from_grad_leaf,
+    soap_init_leaf,
+    soap_step_leaf,
+)
+
+ETA_MIN = 1e-5
+
+
+def linear_schedule(initial_final: tuple[float, float], cur_itr: float, max_itr: float) -> float:
+    initial, final = initial_final
+    return cur_itr * (final - initial) / max_itr + initial
+
+
+def cosine_lr(lr0: float, t: int, t_max: float) -> float:
+    if t_max <= 0:
+        return lr0
+    return ETA_MIN + (lr0 - ETA_MIN) * (1 + math.cos(math.pi * t / t_max)) / 2
+
+
+class EncoderLogs(NamedTuple):
+    loss: float
+    dist: float
+    psnr_db: float
+    total_rate_latent_bpp: float
+    rate_bpp: float
+
+
+@dataclass
+class EncoderMonitor:
+    """Per-encode bookkeeping (reference utils/misc.py training timing
+    prints): iteration counts, wall-clock per pipeline stage, and the card's
+    peak allocated memory. A stage's time ends with a synchronize of the
+    card, so it holds the device work it queued."""
+
+    iterations_counter: int = 0
+    phase_time_sec: dict = field(default_factory=dict)
+    peak_device_bytes: int = 0
+    device: Optional[torch.device] = None
+
+    @contextmanager
+    def timed(self, name: str):
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            if self.device is not None and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.time() - t0
+            self.phase_time_sec[name] = self.phase_time_sec.get(name, 0.0) + dt
+            self.sample_device_memory()
+
+    def sample_device_memory(self):
+        if self.device is not None and self.device.type == "cuda":
+            self.peak_device_bytes = max(self.peak_device_bytes,
+                                         torch.cuda.max_memory_allocated(self.device))
+
+    def report(self) -> str:
+        total = sum(self.phase_time_sec.values()) or 1.0
+        lines = [f"  {k:<18} {v:8.1f}s ({100 * v / total:4.1f}%)"
+                 for k, v in self.phase_time_sec.items()]
+        if self.peak_device_bytes:
+            lines.append(f"  peak device mem    {self.peak_device_bytes / 2**20:.0f} MiB")
+        lines.append(f"  iterations         {self.iterations_counter}")
+        return "\n".join(lines)
+
+
+class TorchNoise:
+    """The trainer's default noise: one draw per latent grid per step, from
+    a torch.Generator on the card. The streams differ from the JAX
+    package's PRNG (jax.random cannot be reproduced in torch); the
+    distributions are the same. Called with kind "seed" for the SOAP
+    seeding gradient and "step" for every training step, in order."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, kind: str, fcfg: FrameConfig, G: int, noise_type: str,
+                 noise_parameter: torch.Tensor, need: bool) -> Optional[dict]:
+        if not need:
+            return None
+        param = noise_parameter.reshape(G, 1, 1)
+        return {name: [sample_noise((G, *s), noise_type, param, generator=self.generator,
+                                    device=param.device)
+                       for s in cfg.size_per_latent]
+                for name, cfg in fcfg.cc_cfgs.items()}
+
+
+class PhaseFns:
+    """The step, gradient and eval of one phase configuration (the port of
+    coolchic_tpu/train/train.py:_make_fns_impl). Parameters travel as the
+    flattened leaf list of a batched frame-params tree shaped like `like`."""
+
+    def __init__(self, fcfg: FrameConfig, like: dict, quantizer_noise_type: str,
+                 quantizer_type: str, dist_weight: Dict[str, float],
+                 betas_model: tuple, betas_latent: tuple,
+                 precondition_frequency_model: int):
+        self.fcfg = fcfg
+        self.like = like
+        self.groups = group_tree(like)
+        self.quantizer_noise_type = quantizer_noise_type
+        self.quantizer_type = quantizer_type
+        self.dist_weight = dict(dist_weight)
+        self.hp_weight = SoapHyperParams(
+            b1=betas_model[0], b2=betas_model[1], weight_decay=0.01,
+            precondition_frequency=precondition_frequency_model, max_precond_dim=256)
+        self.hp_latent = SoapHyperParams(
+            b1=betas_latent[0], b2=betas_latent[1], weight_decay=0.0,
+            precondition_frequency=1, max_precond_dim=0)
+        self.pf = max(precondition_frequency_model, 1)
+        self.need_noise = (quantizer_type in ("none", "softround")
+                           and quantizer_noise_type != "none")
+
+    def loss(self, leaves: list, noise, temp, target, lmbda) -> LossOutput:
+        out = frame_encoder_forward(
+            tree_unflatten(self.like, leaves), self.fcfg, noise=noise,
+            quantizer_type=self.quantizer_type, soft_round_temperature=temp,
+            training=True)
+        return loss_function(out.decoded_image, out.rate, target, self.dist_weight, lmbda)
+
+    def grads(self, leaves: list, noise, temp, target, lmbda) -> list:
+        """d(sum of the images' losses)/d(leaf) per trainable leaf (zeros
+        for a leaf the loss does not reach), None for frozen leaves. The
+        images are independent, so each slot gets its own gradient."""
+        with torch.enable_grad():
+            req = [x.detach().requires_grad_(grp != FROZEN)
+                   for x, grp in zip(leaves, self.groups)]
+            train = [x for x in req if x.requires_grad]
+            lo = self.loss(req, noise, temp, target, lmbda)
+            gs = iter(torch.autograd.grad(lo.loss.sum(), train, allow_unused=True))
+        out = []
+        for x in req:
+            if not x.requires_grad:
+                out.append(None)
+                continue
+            g = next(gs)
+            out.append(torch.zeros_like(x) if g is None else g)
+        return out
+
+    def step(self, leaves: list, states: list, noise, temp, lr: torch.Tensor,
+             target, lmbda, refresh: bool) -> tuple[list, list]:
+        grads = self.grads(leaves, noise, temp, target, lmbda)
+        # Global-norm clip of the WEIGHT group at 0.1, per image
+        # (reference train.py:228).
+        sq = sum(torch.square(g).flatten(1).sum(dim=1)
+                 for g, grp in zip(grads, self.groups) if grp == WEIGHT)
+        norm = torch.sqrt(sq)
+        clip = torch.minimum(torch.ones_like(norm), 0.1 / (norm + 1e-6))
+        new_p, new_s = [], []
+        for p, g, s, grp in zip(leaves, grads, states, self.groups):
+            if grp == FROZEN or s is None:
+                new_p.append(p)
+                new_s.append(s)
+                continue
+            if grp == WEIGHT:
+                g = g * clip.reshape((-1,) + (1,) * (g.dim() - 1))
+                p2, s2 = soap_step_leaf(g, s, p, lr, self.hp_weight, refresh=refresh)
+            else:
+                p2, s2 = soap_step_leaf(g, s, p, lr, self.hp_latent, refresh=False)
+            new_p.append(p2.detach())
+            new_s.append(s2)
+        return new_p, new_s
+
+    def window(self, leaves: list, states: list, draw, n_steps: int, temp,
+               lr: torch.Tensor, target, lmbda) -> tuple[list, list]:
+        """n_steps training steps (train.py:train_window of the JAX
+        package): (pf - 1) plain steps then one eigenbasis-refresh step,
+        from the window's start; a remainder of fewer than pf steps has no
+        refresh. draw() gives each step's noise."""
+        for s in range(n_steps):
+            leaves, states = self.step(leaves, states, draw(), temp, lr, target, lmbda,
+                                       refresh=(s + 1) % self.pf == 0)
+        return leaves, states
+
+    def eval(self, leaves: list, target, lmbda) -> LossOutput:
+        """The decoder's view (hardround latents, bitdepth-rounded image)."""
+        with torch.no_grad():
+            out = frame_encoder_forward(tree_unflatten(self.like, leaves), self.fcfg,
+                                        training=False)
+            return loss_function(out.decoded_image, out.rate, target, self.dist_weight,
+                                 lmbda)
+
+
+def init_opt_state(leaves: list, groups: list, hp_weight: SoapHyperParams,
+                   hp_latent: SoapHyperParams) -> list:
+    return [None if grp == FROZEN else
+            soap_init_leaf(p, hp_weight if grp == WEIGHT else hp_latent)
+            for p, grp in zip(leaves, groups)]
+
+
+def seed_opt_state(states: list, grads: list, groups: list,
+                   hp_weight: SoapHyperParams) -> list:
+    """Reference SOAP first-step semantics (training/soap.py:163-182): seed
+    each WEIGHT leaf's GG with its first gradient and set Q to the eigh
+    eigenbasis; no parameter update. The eigh runs on the host
+    (soap_init_from_grad_leaf); only the small weight-leaf gradients are
+    fetched -- latent gradients never leave the device."""
+    return [soap_init_from_grad_leaf(g, s, hp_weight) if grp == WEIGHT and s is not None
+            else s for s, g, grp in zip(states, grads, groups)]
+
+
+def logs_from_loss(lo: LossOutput, i: int = 0) -> EncoderLogs:
+    """Host logs of image i of a batched LossOutput."""
+    v = {k: float(getattr(lo, k)[i]) for k in LossOutput._fields}
+    return EncoderLogs(loss=v["loss"], dist=v["dist"], psnr_db=dist_to_db(v["mse"]),
+                       total_rate_latent_bpp=v["total_rate_latent_bpp"],
+                       rate_bpp=v["rate_bpp"])
+
+
+def test(params: dict, fcfg: FrameConfig, target,
+         dist_weight: Optional[Dict[str, float]] = None, lmbda: float = 1e-3
+         ) -> EncoderLogs:
+    """Eval logs of one image's params (no batch axis) against its
+    [1, C, H, W] target."""
+    fns = PhaseFns(fcfg, params, "none", "hardround", dist_weight or {"mse": 1.0},
+                   (0.95, 0.95), (0.9, 0.999), 10)
+    leaves = [x[None] for x in tree_leaves(params)]
+    return logs_from_loss(fns.eval(leaves, target, lmbda))
+
+
+def stack_trees(trees: list):
+    """Stack same-shaped trees of tensors on a new leading batch axis."""
+    return tree_unflatten(trees[0], [torch.stack(xs) for xs in
+                                     zip(*(tree_leaves(t) for t in trees))])
+
+
+def index_tree(tree, i: int):
+    return tree_map(lambda x: x[i], tree)

@@ -1,0 +1,303 @@
+"""Per-frame encode pipeline, I frames: warm-up tournament -> training phases
+-> NN quantization -> bitstream write -> decoded-frame save.
+
+The port of the I path of coolchic_tpu/train/video.py (encode_one_frame,
+_prep_frame, _quantize_frame, _finalize_frame). Every stage runs on the
+requested device; the host does the SOAP eigh seeding, the NN quantization
+bookkeeping and the range coding, as in the JAX package.
+
+Noise and initial weights come from torch.Generators seeded from (seed,
+display order, phase index), the role of _frame_phase_key in the JAX
+package; the streams differ from JAX's PRNG, so the port's encode of an
+image is not the JAX encode's bit for bit, only its equal in RD terms.
+
+Not ported yet: P/B frames, RDOQ (rdoq=True raises), the detailed logs
+(train/logs.py), the serial trainer for common-randomness configs, the
+spatial mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from coolchic_tpu_torch.bitstream.encode import encode_frame
+from coolchic_tpu_torch.bitstream.nncodec import flatten_module_params
+from coolchic_tpu_torch.core.device import resolve_device
+from coolchic_tpu_torch.io.framedata import FrameData
+from coolchic_tpu_torch.io.io import load_frame_data_from_file, save_frame_data_to_file
+from coolchic_tpu_torch.models.frame import FrameConfig, frame_encoder_forward, frame_encoder_init
+from coolchic_tpu_torch.models.params import tree_from_numpy, tree_to_numpy
+from coolchic_tpu_torch.nnquant.quantize import exp_golomb_nbins, quantize_coolchic
+from coolchic_tpu_torch.parallel.encode_batch import _batched_phase
+from coolchic_tpu_torch.train.encode import _target_from_frame, img_min_max
+from coolchic_tpu_torch.train.params import tree_leaves, tree_map
+from coolchic_tpu_torch.train.presets import Preset
+from coolchic_tpu_torch.train.train import (
+    EncoderMonitor,
+    PhaseFns,
+    TorchNoise,
+    index_tree,
+    stack_trees,
+    test,
+)
+from coolchic_tpu_torch.train.warmup import warmup_batched
+from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder, save_frame_encoder
+from coolchic_tpu_torch.utils.codingstructure import CodingStructure, Frame
+from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args
+from coolchic_tpu_torch.utils.results import write_frame_results
+
+# Pixel x trial budget of one batched NN-quantization eval.
+_EVAL_BATCH_PX = 8_000_000
+
+
+def intra_gain_for_lmbda(lmbda: float) -> int:
+    """λ-adaptive intra encoder gain (reference video.py:80-91)."""
+    if lmbda < 0.0002:
+        return 24
+    if lmbda < 0.0005:
+        return 20
+    return 16
+
+
+def _decoded_name(display_idx: int, fdata: FrameData, video_path: str) -> str:
+    """Decoded-frame filename: an image keeps its input's format (.ppm
+    stays .ppm, which needs no PIL); yuv names carry the WxH / format
+    convention the loader reads."""
+    if video_path.endswith((".png", ".ppm")):
+        return f"{display_idx:04d}-decoded{os.path.splitext(video_path)[1]}"
+    h, w = fdata.img_size
+    return (f"{display_idx:04d}-decoded_{w}x{h}_{fdata.frame_data_type}_"
+            f"{fdata.bitdepth}b.yuv")
+
+
+def _frame_phase_generator(seed: int, display_order: int, phase_idx: int,
+                           device: torch.device) -> torch.Generator:
+    """Per-(frame, phase) generator, independent of batch composition: the
+    main phases use phase_idx >= 0, the warm-up -1, the candidate init -2."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed + 1000 * display_order) * 100_003 + 7919 + phase_idx)
+    return g
+
+
+def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path: str,
+                     workdir: str, preset: Preset, cfg_args: dict[str, dict],
+                     seed: int = 0, verbose: bool = True, rdoq: bool = True,
+                     tune: str = "mse", profile: str = "ref",
+                     device: str | torch.device = "cuda") -> dict:
+    """Encode one I frame on `device`; returns {payload bytes, logs, ...}.
+    The decoded frame is written to the workdir."""
+    dev = resolve_device(device)
+    if rdoq:
+        raise NotImplementedError("RDOQ is not ported yet: pass rdoq=False "
+                                  "(--no_rdoq)")
+    if frame.frame_type != "I":
+        raise NotImplementedError(f"{frame.frame_type} frames are not encoded by "
+                                  "the port yet (I only)")
+    fdata = load_frame_data_from_file(video_path, frame.display_order + frame.frame_offset)
+    frame.data = fdata
+
+    ckpt_path = os.path.join(workdir, f"{frame.display_order:04d}-frame_encoder.npz")
+    if os.path.exists(ckpt_path):
+        if verbose:
+            print(f"frame {frame.display_order}: resuming from {ckpt_path}", flush=True)
+        params, fcfg, nn_side_info = load_frame_encoder(ckpt_path)
+        return _finalize_frame(frame, coding_structure, params, fcfg, nn_side_info,
+                               fdata, workdir, video_path, verbose, profile=profile,
+                               lmbda=preset.lmbda, device=dev)
+
+    prep = _prep_frame(frame, fdata, preset, cfg_args, seed, tune, dev)
+    fcfg, target, monitor = prep["fcfg"], prep["target"], prep["monitor"]
+    candidates = prep["candidates"]
+
+    if preset.warmup.phases:
+        noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, -1, dev))
+        with monitor.timed("warmup"):
+            params = warmup_batched(candidates, preset, fcfg, target, noise_source=noise,
+                                    monitor=monitor, verbose=verbose)
+    else:
+        params = candidates[0]
+
+    # The main phases run the batched window at n = 1 with the frame's own
+    # noise stream, as the JAX package's serial path does.
+    params_b = stack_trees([params])
+    for idx, phase in enumerate(preset.training_phases):
+        noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, idx, dev))
+        with monitor.timed(f"train_phase_{idx}"):
+            params_b, _ = _batched_phase(params_b, target, fcfg, phase, monitor, verbose,
+                                         noise_source=noise)
+    params = tree_to_numpy(index_tree(params_b, 0))
+
+    params, nn_side_info, _ = _quantize_frame(params, fcfg, preset, target, fdata,
+                                              monitor, verbose, dev)
+
+    if verbose:
+        print(f"frame {frame.frame_type}{frame.display_order}: "
+              f"{monitor.iterations_counter} iters\n" + monitor.report(), flush=True)
+
+    save_frame_encoder(ckpt_path, params, fcfg, nn_side_info)
+    return _finalize_frame(frame, coding_structure, params, fcfg, nn_side_info,
+                           fdata, workdir, video_path, verbose, profile=profile,
+                           lmbda=preset.lmbda, monitor=monitor, device=dev)
+
+
+def _prep_frame(frame: Frame, fdata: FrameData, preset: Preset,
+                cfg_args: dict[str, dict], seed: int, tune: str,
+                device: torch.device) -> dict:
+    """Configs, target and warm-up candidates of one I frame."""
+    h, w = fdata.img_size
+    # λ-adaptive encoder gain for intra (reference video.py:80-91).
+    gain = intra_gain_for_lmbda(preset.lmbda)
+    cfgs = {name: dataclasses.replace(
+        coolchic_config_from_args(args, (h, w), coolchic_name=name,
+                                  frame_type=frame.frame_type, tune=tune),
+        encoder_gain=gain) for name, args in cfg_args.items()}
+    if any(c.flag_common_randomness for c in cfgs.values()):
+        raise NotImplementedError("common randomness (--tune wasserstein) needs the "
+                                  "serial trainer, which is not ported yet")
+
+    fcfg = FrameConfig(
+        coolchic_cfg=cfgs, frame_type=frame.frame_type,
+        frame_data_type=fdata.frame_data_type, bitdepth=fdata.bitdepth,
+        index_references=tuple(frame.index_references),
+        frame_display_index=frame.display_order)
+
+    stats = img_min_max(fdata)
+    n_candidates = preset.warmup.phases[0].candidates if preset.warmup.phases else 1
+    gen = _frame_phase_generator(seed, frame.display_order, -2, device)
+    candidates = [frame_encoder_init(gen, fcfg, stats, device=device)
+                  for _ in range(n_candidates)]
+    return {"fcfg": fcfg, "target": _target_from_frame(fdata, device),
+            "monitor": EncoderMonitor(device=device), "candidates": candidates}
+
+
+def _grid_scorer(params: dict, fcfg: FrameConfig, cc_name: str, target, lmbda: float,
+                 dist_weight: dict, device: torch.device):
+    """score(trials) for quantize_coolchic: the frame's eval loss (decoder's
+    view, no NN rate) with cc `cc_name` replaced by each trial, the trials
+    run as the batch axis in chunks of the _EVAL_BATCH_PX budget. Leaves
+    shared by every trial go to the device once and are broadcast."""
+    fns = PhaseFns(fcfg, params, "none", "hardround", dist_weight,
+                   (0.95, 0.95), (0.9, 0.999), 10)
+    h, w = fcfg.cc_cfgs["residue"].img_size
+    chunk = max(1, _EVAL_BATCH_PX // (h * w))
+    on_device: dict[int, tuple] = {}
+
+    def dev_leaf(x):
+        if id(x) not in on_device:
+            on_device[id(x)] = (x, torch.tensor(np.asarray(x), device=device))
+        return on_device[id(x)][1]
+
+    def score(trials: list[dict]) -> np.ndarray:
+        losses = []
+        for c0 in range(0, len(trials), chunk):
+            trees = [{**params, cc_name: t} for t in trials[c0:c0 + chunk]]
+            g = len(trees)
+            leaves = []
+            for xs in zip(*(tree_leaves(t) for t in trees)):
+                if all(x is xs[0] for x in xs):
+                    t0 = dev_leaf(xs[0])
+                    leaves.append(t0[None].expand(g, *t0.shape))
+                else:
+                    leaves.append(torch.as_tensor(np.stack(xs), device=device))
+            tgt = (tree_map(lambda t: t.expand(g, *t.shape[1:]), target)
+                   if isinstance(target, dict) else target.expand(g, *target.shape[1:]))
+            losses.append(fns.eval(leaves, tgt, lmbda).loss)
+        return torch.cat(losses).cpu().numpy()
+
+    return score
+
+
+def _quantize_frame(params: dict, fcfg: FrameConfig, preset: Preset, target,
+                    fdata: FrameData, monitor: EncoderMonitor, verbose: bool,
+                    device: torch.device) -> tuple[dict, dict, float]:
+    """NN quantization of every cool-chic in `params` (numpy); returns the
+    quantized params, the per-cc (q_shift, expgol) side info and the NN rate
+    in bits."""
+    phase0 = preset.training_phases[-1]
+    nn_side_info = {}
+    nn_bits = 0.0
+    for cc_name in fcfg.cc_cfgs:
+        score = _grid_scorer(params, fcfg, cc_name, target, phase0.lmbda,
+                             phase0.dist_weight, device)
+        with monitor.timed("nn_quantize"):
+            q_params, q_shift, expgol, bits = quantize_coolchic(
+                params[cc_name], fcfg.cc_cfgs[cc_name], score, phase0.lmbda,
+                fdata.n_pixels, verbose=verbose)
+        params = {**params, cc_name: q_params}
+        nn_side_info[cc_name] = (q_shift, expgol)
+        nn_bits += bits
+    return params, nn_side_info, nn_bits
+
+
+def nn_rate_bits(params: dict, fcfg: FrameConfig, nn_side_info: dict) -> float:
+    """Exp-Golomb estimate of the NN rate, in bits (coolchic_tpu/train/
+    logs.py:detailed_test's rate_nn)."""
+    total = 0.0
+    for cc_name, (q_shift, expgol) in nn_side_info.items():
+        cfg = fcfg.cc_cfgs[cc_name]
+        for module in ("arm", "ifce", "upsampling", "synthesis"):
+            for wb in ("weight", "bias"):
+                arrays = flatten_module_params(params[cc_name], cfg, module, wb)
+                if not arrays:
+                    continue
+                q = 2.0 ** q_shift[(module, wb)]
+                ints = np.concatenate([np.round(np.asarray(a) / q).reshape(-1)
+                                       for a in arrays])
+                total += exp_golomb_nbins(ints, expgol[(module, wb)])
+    return total
+
+
+def _finalize_frame(frame: Frame, coding_structure: CodingStructure, params: dict,
+                    fcfg: FrameConfig, nn_side_info: dict, fdata: FrameData,
+                    workdir: str, video_path: str, verbose: bool,
+                    profile: str = "ref", lmbda: float = 0.0,
+                    monitor: Optional[EncoderMonitor] = None,
+                    device: torch.device = torch.device("cpu")) -> dict:
+    """Bitstream write + decoded-frame save + the summary results TSV
+    (shared between the fresh-encode and resume-from-checkpoint paths)."""
+    monitor = monitor or EncoderMonitor(device=device)
+    target = _target_from_frame(fdata, device)
+    n_pixels = fdata.n_pixels
+    params_dev = tree_from_numpy(params, device)
+
+    logs = test(params_dev, fcfg, target)
+
+    with monitor.timed("bitstream_write"):
+        payload = encode_frame(params, fcfg, coding_structure, nn_side_info,
+                               is_first_frame=frame.coding_order == 0, profile=profile)
+
+    with torch.no_grad():
+        out = frame_encoder_forward(tree_map(lambda x: x[None], params_dev), fcfg,
+                                    training=False)
+    if fdata.frame_data_type == "yuv420":
+        dec_data = {k: v.cpu().numpy() for k, v in out.decoded_image.items()}
+    else:
+        dec_data = out.decoded_image.cpu().numpy()
+    decoded = FrameData(fdata.bitdepth, fdata.frame_data_type, dec_data)
+    save_frame_data_to_file(decoded, os.path.join(
+        workdir, _decoded_name(frame.display_order, fdata, video_path)))
+
+    rate_bpp = 8 * len(payload) / n_pixels
+    write_frame_results(
+        os.path.join(workdir, f"{frame.display_order:04d}-results_encoder.tsv"),
+        seq_name=frame.seq_name or os.path.basename(workdir), lmbda=lmbda,
+        n_pixels=n_pixels, logs=logs, rate_bpp=rate_bpp,
+        extra={"frame_type": fcfg.frame_type, "n_bytes": len(payload)})
+
+    # Encoder-side rate estimate incl. the NN rate (what the JAX package's
+    # detailed logs carry as rate_bpp), for the decode-back check.
+    est_rate_bpp = logs.total_rate_latent_bpp + nn_rate_bits(params, fcfg,
+                                                             nn_side_info) / n_pixels
+    if verbose:
+        print(f"frame {fcfg.frame_type}{frame.display_order}: "
+              f"psnr {logs.psnr_db:.3f} dB, {rate_bpp:.4f} bpp "
+              f"({len(payload)} bytes)", flush=True)
+
+    return {"payload": payload, "logs": logs, "decoded": decoded,
+            "n_bytes": len(payload), "fcfg": fcfg, "est_rate_bpp": est_rate_bpp,
+            "monitor": monitor}

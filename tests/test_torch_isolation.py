@@ -37,21 +37,56 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "coolchic_tpu_torch.ops.wavefront_decode" in res["modules"]
     assert "coolchic_tpu_torch.bitstream.device_decode" in res["modules"]
+    for name in ("cc_encode", "train.video", "train.soap", "parallel.encode_batch",
+                 "nnquant.quantize", "bitstream.encode"):
+        assert f"coolchic_tpu_torch.{name}" in res["modules"]
     assert res["leaked"] == []
     assert res["cudnn_tf32"] is False
     assert res["matmul_precision"] == "highest"
 
 
-@pytest.mark.parametrize("entry", ["decode_video", "decode_images", "resolve_device"])
-def test_default_device_refuses_cpu_fallback(entry):
+IMG = str(REPO / "tests/data/192x128_kodim15.png")
+
+
+def _encode_one_frame(tmp_path):
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.video import encode_one_frame
+    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
+    from coolchic_tpu_torch.utils.parsecli import intra_operating_points
+
+    cs = CodingStructure(n_frames=1, intra_pos=[0])
+    return encode_one_frame(cs.get_frame_from_coding_order(0), cs, IMG, str(tmp_path),
+                            PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1),
+                            {"residue": intra_operating_points()["lop"]}, rdoq=False)
+
+
+@pytest.mark.parametrize("entry", ["decode_video", "decode_images", "resolve_device",
+                                   "cc_encode", "encode_one_frame"])
+def test_default_device_refuses_cpu_fallback(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
+    from coolchic_tpu_torch import cc_encode
     from coolchic_tpu_torch.bitstream.decode import decode_images, decode_video
     from coolchic_tpu_torch.core.device import resolve_device
 
     ref_file = str(REPO / "results/round4/h2h_kodim15_v3/kodim15_p012_l0.02.cool")
     call = {"decode_video": lambda: decode_video(ref_file),
             "decode_images": lambda: decode_images([]),
-            "resolve_device": lambda: resolve_device("cuda")}[entry]
+            "resolve_device": lambda: resolve_device("cuda"),
+            "cc_encode": lambda: cc_encode.main(
+                ["-i", IMG, "-o", str(tmp_path / "o.cool"), "--no_rdoq"]),
+            "encode_one_frame": lambda: _encode_one_frame(tmp_path)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+    assert not (tmp_path / "o.cool").exists()
+
+
+def test_cc_encode_refuses_without_no_rdoq(tmp_path):
+    """RDOQ is not ported: without --no_rdoq the CLI stops before any work
+    (an encode must not silently differ from the JAX CLI's default)."""
+    from coolchic_tpu_torch import cc_encode
+
+    with pytest.raises(SystemExit, match="--no_rdoq"):
+        cc_encode.main(["-i", IMG, "-o", str(tmp_path / "o.cool"), "--device", "cpu",
+                        "--workdir", str(tmp_path)])
+    assert list(tmp_path.iterdir()) == []
