@@ -20,7 +20,8 @@ Phases, each fatal on failure:
      kernel launches counted, grids bit-exact against the host decode, float
      output within 1e-4 of the port's `ref`-profile decode and 8-bit planes
      within one code value;
-  4. timing with CUDA events (warm-up, median of 5): batch decode, kernel
+  4. timing with CUDA events (warm-up, median of 5; the plain version, no
+     warm-up, median of 3): batch decode, kernel
      per level at G = 8, kernel and plain version on one level-0 grid, the
      host C++ decode of that grid as a yardstick, and the kernel's bound;
      level 0 at G = 1, 8 and 32; the ablation line: level 0 at G = 8 for
@@ -39,11 +40,32 @@ Phases, each fatal on failure:
      relative to the CPU's), and a TF32 run of the step on the card that
      the tolerance must reject; ms per training step (CUDA events, median
      over a window of 20 main-phase steps); seconds per stage, peak
-     memory, PSNR and bpp.
+     memory, PSNR and bpp;
+  6. RDOQ on the card: (a) rdoq_coolchic on phase 5's checkpoint
+     (NN-quantized without RDOQ): seconds per (module, wb) sweep (the card
+     synchronised), probes, lanes, host syncs, scalars adjusted, rollbacks,
+     peak memory, and the true objective (the `tpu` file written and
+     decoded by the port: mse + lambda * 8 * bytes / pixels) before and
+     after, which must not worsen; (b) one probe of each scorer (ARM, IFCE,
+     synthesis row tiles, upsampling full reconstruction) on the card and
+     on the CPU, equal within the CPU tests' bars; (c) the CLI with its
+     defaults (RDOQ on) at 512x768 hop, debug recipe, `tpu` profile, on a
+     fresh workdir (a workdir holding a checkpoint resumes from it): exit 0,
+     kernel launches counted, seconds per stage, archi.txt and the
+     encoder, decoder and detailed TSVs parsed, every grid of the new file
+     kernel == host C++;
+  7. --tune wasserstein through the CLI (the same input, .ppm; common
+     randomness, the serial trainer), checked as in 6c but for the grids:
+     a common-randomness file decodes on the host path; on its parameters
+     one training step's loss and gradients on the card against the CPU
+     (phase 5's bar), and ms per serial step over one validation window of
+     the debug main phase (CUDA events), with peak memory.
 
-Prints the ablation line, the encode line, a {"kernels": [...]} line, then
-the card line, and ends with {"ok": true, "device": {...}}. Exits non-zero,
-printing no result, without a CUDA card or outside a checkout of the repo.
+Prints the ablation line, the encode, RDOQ and Wasserstein lines, a
+{"kernels": [...]} line (launches: the default CLI's, phase 6c; every
+path's in launches_by_path), then the card line, and ends with
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, without
+a CUDA card or outside a checkout of the repo.
 """
 
 from __future__ import annotations
@@ -62,6 +84,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_IMAGES = 8
 N_TIMED = 5
+# The plain version takes ~30 s a level-0 grid (thousands of eager
+# launches): phase 4 times it over fewer runs, to keep the run's time.
+N_TIMED_PLAIN = 3
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # rate, and the CUDA-core (non-tensor) rate, at which int32 multiply-adds
 # issue at most.
@@ -186,6 +211,82 @@ def split_batch_ms(batch) -> dict:
     return {name: statistics.median(v) for name, v in samples.items()}
 
 
+def check_file_grids(out: Path, dev) -> list:
+    """Every latent grid of a new `tpu`-profile file decoded by the kernel
+    equals the host C++ decode; returns the 128-stream (kernel) levels."""
+    import numpy as np
+
+    from coolchic_tpu_torch.bitstream import codec
+    from coolchic_tpu_torch.bitstream.decode import _decode_items_batched
+    from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks
+    from coolchic_tpu_torch.bitstream.headers import (
+        TPU_PROFILE_MAGIC,
+        CoolChicHeader,
+        FrameHeader,
+        VideoHeader,
+    )
+
+    rest = out.read_bytes()
+    check(rest.startswith(TPU_PROFILE_MAGIC), f"{out.name} is not tpu-profile")
+    rest = rest[len(TPU_PROFILE_MAGIC):]
+    _, rest = VideoHeader.read(rest)
+    _, rest = FrameHeader.read(rest)
+    ch, rest = CoolChicHeader.read(rest)
+    bnn, blat = rest[:ch.nn_n_bytes], rest[ch.nn_n_bytes:ch.nn_n_bytes + ch.n_bytes_latent]
+    cfg = ch.to_config()
+    blocks = _parse_level_blocks(cfg, blat)
+    k_levels = [lv for lv in range(cfg.n_latent_grids) if blocks[lv]["n_streams"] == 128]
+    check(k_levels[:2] == [0, 1], f"128-stream levels {k_levels}")
+    outputs, routes = _decode_items_batched([(ch, bnn, blat)], dev)
+    check(routes[0]["path"] == "device", f"decode-back route {routes}")
+    _, host_grids = codec.decode_coolchic_tpu_host(ch, bnn, blat, device=dev)
+    for lv in range(cfg.n_latent_grids):
+        check(np.array_equal(outputs[0][1][lv], host_grids[lv]),
+              f"{out.name} level {lv}: kernel decode != host C++")
+    return k_levels
+
+
+def step_on(d, params, fcfg, tgt, phase, noise, cr_on=None):
+    """One training step's loss and gradients of `params` (one image,
+    numpy) on device d: the phase's quantizer and loss, the given noise
+    draws; `cr_on(d)` gives the common-randomness grids on d."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.models.params import tree_from_numpy
+    from coolchic_tpu_torch.train.encode import _target_from_frame
+    from coolchic_tpu_torch.train.params import tree_leaves, tree_map
+    from coolchic_tpu_torch.train.train import PhaseFns
+
+    like = tree_from_numpy(tree_map(lambda x: np.asarray(x)[None], params), d)
+    fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
+                   phase.dist_weight, tuple(phase.betas_model), tuple(phase.betas_latent),
+                   phase.precondition_frequency_model, cr=None if cr_on is None else cr_on(d))
+    args = (tree_leaves(like), {k: [x.to(d) for x in v] for k, v in noise.items()},
+            phase.softround_temperature[0], _target_from_frame(tgt, d),
+            torch.full((1,), phase.lmbda, device=d))
+    with torch.no_grad():
+        loss = float(fns.loss(*args).loss[0])
+    return loss, [None if g is None else g.cpu().double() for g in fns.grads(*args)]
+
+
+def grad_errors(params, grads, ref):
+    """Worst per-leaf |g - ref|_2 / |ref|_2 (and its leaf), worst per-leaf
+    max |g - ref| / max |ref|."""
+    import numpy as np
+
+    from coolchic_tpu_torch.train.params import tree_flatten_with_path, tree_map
+
+    batched = tree_map(lambda x: np.asarray(x)[None], params)
+    worst_l2, worst_max = (0.0, ""), 0.0
+    for (path, _), a, b in zip(tree_flatten_with_path(batched), grads, ref):
+        if b is None or float(b.abs().max()) == 0.0:
+            continue
+        worst_l2 = max(worst_l2, (float((a - b).norm() / b.norm()), path))
+        worst_max = max(worst_max, float((a - b).abs().max() / b.abs().max()))
+    return worst_l2, worst_max
+
+
 def encode_phase(dev, target_frame, workdir: Path) -> dict:
     """Phase 5: the intra encode of one 512x768 frame at hop, `tpu` profile,
     through the port's CLI on the card; the new file's grids decoded by the
@@ -195,26 +296,13 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
     import torch
 
     from coolchic_tpu_torch import cc_encode
-    from coolchic_tpu_torch.bitstream import codec
-    from coolchic_tpu_torch.bitstream.decode import _decode_items_batched, decode_video
-    from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks
-    from coolchic_tpu_torch.bitstream.headers import (
-        TPU_PROFILE_MAGIC,
-        CoolChicHeader,
-        FrameHeader,
-        VideoHeader,
-    )
+    from coolchic_tpu_torch.bitstream.decode import decode_video
     from coolchic_tpu_torch.io.io import load_frame_data_from_file, save_frame_data_to_file
     from coolchic_tpu_torch.models.params import tree_from_numpy
     from coolchic_tpu_torch.ops import wavefront_decode as wfd
     from coolchic_tpu_torch.train.encode import _target_from_frame
     from coolchic_tpu_torch.train.loss import dist_to_db
-    from coolchic_tpu_torch.train.params import (
-        WEIGHT,
-        tree_flatten_with_path,
-        tree_leaves,
-        tree_map,
-    )
+    from coolchic_tpu_torch.train.params import WEIGHT, tree_leaves, tree_map
     from coolchic_tpu_torch.train.presets import PresetDebug
     from coolchic_tpu_torch.train.train import PhaseFns, TorchNoise, init_opt_state
     from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder
@@ -250,25 +338,9 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
     print(f"[5] torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
 
     # every 128-stream grid of the new file: kernel == host C++
-    rest = out.read_bytes()
-    check(rest.startswith(TPU_PROFILE_MAGIC), "the new file is not tpu-profile")
-    rest = rest[len(TPU_PROFILE_MAGIC):]
-    _, rest = VideoHeader.read(rest)
-    _, rest = FrameHeader.read(rest)
-    ch, rest = CoolChicHeader.read(rest)
-    bnn, blat = rest[:ch.nn_n_bytes], rest[ch.nn_n_bytes:ch.nn_n_bytes + ch.n_bytes_latent]
-    cfg = ch.to_config()
-    blocks = _parse_level_blocks(cfg, blat)
-    k_levels = [lv for lv in range(cfg.n_latent_grids) if blocks[lv]["n_streams"] == 128]
-    check(k_levels[:2] == [0, 1], f"128-stream levels {k_levels}")
-    outputs, routes = _decode_items_batched([(ch, bnn, blat)], dev)
-    check(routes[0]["path"] == "device", f"decode-back route {routes}")
-    _, host_grids = codec.decode_coolchic_tpu_host(ch, bnn, blat, device=dev)
-    for lv in range(cfg.n_latent_grids):
-        check(np.array_equal(outputs[0][1][lv], host_grids[lv]),
-              f"new file level {lv}: kernel decode != host C++")
-    print(f"[5] new file: levels {k_levels} are 128-stream grids; all "
-          f"{cfg.n_latent_grids} grids kernel == host C++", flush=True)
+    k_levels = check_file_grids(out, dev)
+    print(f"[5] new file: levels {k_levels} are 128-stream grids; every grid kernel "
+          f"== host C++", flush=True)
 
     dec = decode_video(str(out), device=dev)["0"]
     tgt = load_frame_data_from_file(str(src))
@@ -290,26 +362,7 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
     batched = tree_map(lambda x: np.asarray(x)[None], params)
 
     def one_step(d):
-        like = tree_from_numpy(batched, d)
-        fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
-                       phase.dist_weight, tuple(phase.betas_model),
-                       tuple(phase.betas_latent), phase.precondition_frequency_model)
-        args = (tree_leaves(like), {k: [x.to(d) for x in v] for k, v in noise.items()},
-                temp, _target_from_frame(tgt, d), torch.full((1,), 1e-3, device=d))
-        with torch.no_grad():
-            loss = float(fns.loss(*args).loss[0])
-        return loss, [None if g is None else g.cpu().double() for g in fns.grads(*args)]
-
-    def errors(grads, ref):
-        """Worst per-leaf |g - ref|_2 / |ref|_2 (and its leaf), worst
-        per-leaf max |g - ref| / max |ref|."""
-        worst_l2, worst_max = (0.0, ""), 0.0
-        for (path, _), a, b in zip(tree_flatten_with_path(batched), grads, ref):
-            if b is None or float(b.abs().max()) == 0.0:
-                continue
-            worst_l2 = max(worst_l2, (float((a - b).norm() / b.norm()), path))
-            worst_max = max(worst_max, float((a - b).abs().max() / b.abs().max()))
-        return worst_l2, worst_max
+        return step_on(d, params, fcfg, tgt, phase, noise)
 
     l_cpu, g_cpu = one_step(torch.device("cpu"))
     l_dev, g_dev = one_step(dev)
@@ -320,8 +373,8 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
     finally:
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-    (l2, l2_path), mx = errors(g_dev, g_cpu)
-    (l2_tf32, l2_tf32_path), mx_tf32 = errors(g_tf32, g_cpu)
+    (l2, l2_path), mx = grad_errors(params, g_dev, g_cpu)
+    (l2_tf32, l2_tf32_path), mx_tf32 = grad_errors(params, g_tf32, g_cpu)
     print(f"[5] one step card vs cpu: loss {l_dev:.8f} vs {l_cpu:.8f}; gradients: worst "
           f"leaf |diff|_2/|cpu|_2 {l2:.2e} ({l2_path}), worst max|diff|/max|cpu| {mx:.2e}; "
           f"TF32 control {l2_tf32:.2e} ({l2_tf32_path}), {mx_tf32:.2e}; tolerance "
@@ -394,6 +447,284 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
             "host_step_ms": host_ms, "step_profile": profile_row,
             "stages_s": stages["stages_s"], "peak_bytes": peak, "psnr_enc":
             float(enc["psnr_db"]), "psnr_dec": psnr_dec, "bpp": 8 * n_bytes / n_px}
+
+
+def bitstream_objective(params, fcfg, side, frame, lmbda, dev, path: Path) -> dict:
+    """The true objective of params: the `tpu`-profile file written, decoded
+    by the port (the kernel for the 128-stream levels), mse + lambda * 8 *
+    bytes / pixels."""
+    import numpy as np
+
+    from coolchic_tpu_torch.bitstream.decode import decode_video
+    from coolchic_tpu_torch.bitstream.encode import encode_frame
+    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
+
+    payload = encode_frame(params, fcfg, CodingStructure(n_frames=1, intra_pos=[0]), side,
+                           is_first_frame=True, profile="tpu")
+    path.write_bytes(payload)
+    dec = decode_video(str(path), device=dev)["0"]
+    mse = float(np.mean(np.square(np.asarray(dec.data, np.float64)
+                                  - np.asarray(frame.data, np.float64))))
+    bpp = 8 * len(payload) / frame.n_pixels
+    return {"objective": mse + lmbda * bpp, "mse": mse, "bpp": bpp, "bytes": len(payload)}
+
+
+def compare_lanes(card, cpu, n_samples=None) -> dict:
+    """The CPU tests' bar (tests/test_torch_rdoq.py): each lane within 1e-5
+    relative; a reconstruction scorer's lane above it explained by 8-bit
+    flips of under 0.1 % of its samples."""
+    import numpy as np
+
+    card, cpu = card.astype(np.float64).ravel(), cpu.astype(np.float64).ravel()
+    check(bool(np.isfinite(card).all() and np.isfinite(cpu).all()), "non-finite scores")
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    off = rel > 1e-5
+    flips = 0.0
+    if off.any():
+        check(n_samples is not None, f"rate scorer lanes differ by {rel.max():.2e}")
+        flips = np.ceil(np.abs(card - cpu) * n_samples / ((2 + 1 / 255) / 255))
+        check(bool((flips[off] < 1e-3 * n_samples).all()),
+              f"scorer lanes differ by {rel.max():.2e} ({flips.max():.0f} flips)")
+        flips = float(flips[off].max())
+    return {"max_rel": float(rel.max()), "lanes_off": int(off.sum()), "max_flips": flips}
+
+
+def check_workdir_logs(work: Path) -> dict:
+    """archi.txt and the reference-schema encoder / decoder TSVs and the
+    detailed log of frame 0 exist and parse; returns the detailed row."""
+    check("mac_per_pixel total" in (work / "archi.txt").read_text(), "archi.txt")
+    for name in ("results_encoder_ref", "results_decoder"):
+        head, row = (work / f"0000-{name}.tsv").read_text().splitlines()
+        check(len(head.split()) == len(row.split()) > 5, f"0000-{name}.tsv does not parse")
+    head, row = (work / "0000-logs_detailed.tsv").read_text().splitlines()
+    detailed = dict(zip(head.split("\t"), row.split("\t")))
+    check(len(detailed) == len(row.split("\t")), "0000-logs_detailed.tsv does not parse")
+    check(float(detailed["rate_bpp"]) > float(detailed["rate_latent_bpp"]) > 0,
+          "logs_detailed rates")
+    return detailed
+
+
+def run_cli(dev, tag: str, argv: list, work: Path, kernel_path: bool = True) -> dict:
+    """One `cc_encode` run as a user runs it (its exit code carries the
+    decode-back checks): wavefront_decode launches counted from 0, peak
+    memory, seconds per stage, the logs parsed, and, on the kernel path,
+    every grid of the new file kernel == host C++. A common-randomness file
+    decodes on the host path (bitstream/device_decode.py:prepare_batch
+    refuses it, as the JAX package's device decode does): kernel_path=False
+    holds it to 0 launches instead."""
+    import torch
+
+    from coolchic_tpu_torch import cc_encode
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+
+    out = work / "out.cool"
+    torch.cuda.reset_peak_memory_stats(dev)
+    wfd.KERNEL.launches = 0
+    t0 = time.time()
+    rc = cc_encode.main([*argv, "-o", str(out), "--workdir", str(work), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = wfd.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, f"{tag}: cc_encode exited {rc}")
+    check((launches > 0) == kernel_path,
+          f"{tag}: the decode-back launched wavefront_decode {launches} times")
+    stages = json.loads((work / "0000-encoder_stages.json").read_text())
+    detailed = check_workdir_logs(work)
+    grids = (f"levels {check_file_grids(out, dev)} kernel == host C++" if kernel_path
+             else "host decode path (common randomness)")
+    n_bytes = out.stat().st_size
+    print(f"[{tag}] cc_encode exit 0 in {wall:.1f} s, {n_bytes} bytes, psnr "
+          f"{float(detailed['psnr_db']):.3f} dB, wavefront_decode launches {launches} "
+          f"(decode-back); {grids}; archi.txt and the encoder, decoder and detailed TSVs "
+          f"parse", flush=True)
+    print(f"[{tag}] stages (EncoderMonitor, s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages["stages_s"].items())
+        + f"; peak {peak / 2**30:.2f} GiB", flush=True)
+    return {"wall_s": wall, "launches": launches, "stages_s": stages["stages_s"],
+            "peak_bytes": peak, "bytes": n_bytes, "psnr_db": float(detailed["psnr_db"]),
+            "rate_bpp_estimate": float(detailed["rate_bpp"])}
+
+
+def rdoq_phase(dev, p5: Path, work: Path) -> dict:
+    """Phase 6: RDOQ on the card. (a) rdoq_coolchic on phase 5's
+    checkpoint (NN-quantized without RDOQ): per sweep seconds, probes,
+    lanes, host syncs and scalars adjusted, peak memory, and the true
+    objective on the real bitstream before and after (must not worsen);
+    (b) one probe of each scorer on the card against the CPU; (c) the CLI
+    with its defaults (RDOQ on) on a fresh workdir."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.nnquant import rdoq as R
+    from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder
+
+    work.mkdir()
+    params, fcfg, side = load_frame_encoder(str(p5 / "0000-frame_encoder.npz"))
+    cfg = fcfg.cc_cfgs["residue"]
+    q_shift, expgol = side["residue"]
+    frame = load_frame_data_from_file(str(p5 / "target.ppm"))
+    target = np.asarray(frame.data, np.float32)
+    lmbda = 1e-3
+
+    # (a) the sweeps on the card, the objective measured on the bitstream
+    before = bitstream_objective(params, fcfg, side, frame, lmbda, dev, work / "before.cool")
+    expgol_after, log = dict(expgol), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    refined = R.rdoq_coolchic(params["residue"], cfg, q_shift, expgol_after, lmbda,
+                              target=target, device=dev, log=log)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for rec in log:
+        print(f"[6a] rdoq {rec['module']}.{rec['wb']}: {rec['seconds']:.3f} s, {rec['probes']} "
+              f"probes x {rec['chunk']} scalars x {rec['shifts']} shifts ({rec['lanes']} lanes), "
+              f"{rec['syncs']} host syncs, {rec['adjusted']}/{rec['n']} adjusted, "
+              f"{rec['rollbacks']} rollbacks", flush=True)
+    after = bitstream_objective({**params, "residue": refined}, fcfg,
+                                {"residue": (q_shift, expgol_after)}, frame, lmbda, dev,
+                                work / "after.cool")
+    print(f"[6a] rdoq_coolchic 512x768 hop: {wall:.2f} s, {sum(r['probes'] for r in log)} "
+          f"probes, {sum(r['syncs'] for r in log)} host syncs; peak "
+          f"{peak / 2**30:.2f} GiB ({(peak - base_bytes) / 2**30:.2f} above the start); "
+          f"objective on the bitstream {before['objective']:.6e} -> "
+          f"{after['objective']:.6e} (mse {before['mse']:.4e} -> {after['mse']:.4e}, "
+          f"{before['bytes']} -> {after['bytes']} bytes)", flush=True)
+    check(after["objective"] <= before["objective"],
+          f"RDOQ worsened the objective: {before} -> {after}")
+
+    # (b) one probe of each scorer, card against CPU, on the same inputs
+    cpu = torch.device("cpu")
+    probes = {}
+    for module in ("arm", "ifce", "synthesis", "upsampling"):
+        setups = [R.module_scorers(params["residue"], cfg, module, q_shift, expgol, lmbda,
+                                   target, "rgb", 8, d, R._probe_budget_bytes(d))
+                  for d in (dev, cpu)]
+        shifts, chunk = setups[0][:2]
+        flat = R._flat(params["residue"], cfg, module, "weight")
+        fb = R._flat(params["residue"], cfg, module, "bias")
+        idxs = np.random.default_rng(0).permutation(flat.size)[:chunk]
+        q = float(2.0 ** q_shift[(module, "weight")])
+        vals = flat[idxs][:, None] + np.asarray(shifts, np.float32)[None, :] * np.float32(q)
+        res, secs = [], []
+        for d, setup in zip((dev, cpu), setups):
+            args = [torch.tensor(a, device=d) for a in (flat, fb, idxs, vals)]
+            scorer = setup[3]["weight"]
+            if d.type == "cuda":
+                scorer(*args)   # the first call builds cuDNN / cuBLAS plans
+                torch.cuda.synchronize()
+            t0 = time.time()
+            res.append(scorer(*args).cpu().numpy())
+            secs.append(time.time() - t0)
+        n_samples = None if module in ("arm", "ifce") else 3 * frame.n_pixels
+        cmp = compare_lanes(res[0], res[1], n_samples)
+        probes[module] = {"lanes": int(vals.size), "card_s": secs[0], "cpu_s": secs[1], **cmp}
+        print(f"[6b] {module} scorer, one probe of {vals.size} lanes: card {secs[0]:.3f} s, "
+              f"cpu {secs[1]:.2f} s; max rel diff {cmp['max_rel']:.2e}, "
+              f"{cmp['lanes_off']} lanes above 1e-5 (<= {cmp['max_flips']:.0f} flipped "
+              f"samples)", flush=True)
+
+    # (c) the CLI with its defaults: RDOQ on, fresh workdir
+    cli = run_cli(dev, "6c", ["-i", str(p5 / "target.ppm"), "--dec_cfg_residue", "hop",
+                              "--recipe", "debug", "--profile", "tpu", "--lmbda", "1e-3"],
+                  work / "cli")
+    check(cli["stages_s"].get("rdoq", 0.0) > 0, "the default CLI ran no RDOQ stage")
+    return {"rdoq_s": wall, "sweeps": log, "peak_bytes": peak, "before": before,
+            "after": after, "probes": probes, "cli": cli}
+
+
+def wasserstein_phase(dev, src: Path, work: Path) -> dict:
+    """Phase 7: --tune wasserstein through the CLI (512x768 hop, debug
+    recipe, .ppm), then on its parameters ms per serial training step
+    (CUDA events, one validation window) and one step's loss and gradients
+    on the card against the CPU."""
+    import torch
+
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.models.frame import frame_cr_grids
+    from coolchic_tpu_torch.models.params import tree_from_numpy
+    from coolchic_tpu_torch.train.encode import _target_from_frame
+    from coolchic_tpu_torch.train.params import tree_leaves, tree_map
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.train import (
+        PhaseFns,
+        TorchNoise,
+        init_opt_state,
+        seed_opt_state,
+    )
+    from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder
+
+    work.mkdir()
+    cli = run_cli(dev, "7", ["-i", str(src), "--dec_cfg_residue", "hop", "--recipe", "debug",
+                             "--profile", "tpu", "--lmbda", "1e-3", "--tune", "wasserstein"],
+                  work / "cli", kernel_path=False)
+    params, fcfg, _ = load_frame_encoder(str(work / "cli" / "0000-frame_encoder.npz"))
+    check(fcfg.cc_cfgs["residue"].flag_common_randomness, "no common randomness")
+    tgt = load_frame_data_from_file(str(src))
+    dist = {"mse": 0.2, "wasserstein": 0.8 / 200}   # the CLI's --tune wasserstein weights
+    phase = PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1,
+                        dist_weight=dist).training_phases[0]
+
+    # one step, card against CPU, the phase-5 bar on the worst leaf
+    noise = TorchNoise(torch.Generator().manual_seed(0))(
+        "step", fcfg, 1, phase.quantizer_noise_type,
+        torch.tensor([phase.noise_parameter[0]]), True)
+    t0 = time.time()
+    l_cpu, g_cpu = step_on(torch.device("cpu"), params, fcfg, tgt, phase, noise,
+                           lambda d: frame_cr_grids(fcfg, d))
+    cpu_s = time.time() - t0
+    l_dev, g_dev = step_on(dev, params, fcfg, tgt, phase, noise,
+                           lambda d: frame_cr_grids(fcfg, d))
+    (l2, l2_path), mx = grad_errors(params, g_dev, g_cpu)
+    print(f"[7] one Wasserstein step card vs cpu: loss {l_dev:.8f} vs {l_cpu:.8f}; worst "
+          f"leaf |diff|_2/|cpu|_2 {l2:.2e} ({l2_path}), worst max|diff|/max|cpu| {mx:.2e} "
+          f"(tolerance {STEP_GRAD_TOL:.0e} on the first); the CPU step took {cpu_s:.1f} s",
+          flush=True)
+    check(abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu), f"step loss card {l_dev} cpu {l_cpu}")
+    check(l2 <= STEP_GRAD_TOL, f"step gradient {l2_path}: card vs cpu {l2:.2e}")
+
+    # ms per serial training step: one validation window of the debug main
+    # phase (min(freq_valid, max_itr) steps), SOAP seeded as train() does
+    like = tree_from_numpy(tree_map(lambda x: x[None], params), dev)
+    fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type, dist,
+                   tuple(phase.betas_model), tuple(phase.betas_latent),
+                   phase.precondition_frequency_model, cr=frame_cr_grids(fcfg, dev))
+    leaves = tree_leaves(like)
+    target, lmbda = _target_from_frame(tgt, dev), torch.full((1,), 1e-3, device=dev)
+    draw = TorchNoise(torch.Generator(device=dev).manual_seed(1))
+    level = torch.full((1,), phase.noise_parameter[0], device=dev)
+    temp, lr = phase.softround_temperature[0], torch.tensor(phase.lr, device=dev)
+    states = init_opt_state(leaves, fns.groups, fns.hp_weight, fns.hp_latent)
+    states = seed_opt_state(states, fns.grads(leaves, draw("seed", fcfg, 1, "gaussian", level,
+                                                             True), temp, target, lmbda),
+                            fns.groups, fns.hp_weight)
+    n_steps = min(phase.freq_valid, phase.max_itr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    events = []
+    t0 = time.time()
+    for s in range(n_steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        leaves, states = fns.step(leaves, states, draw("step", fcfg, 1, "gaussian", level, True),
+                                  temp, lr, target, lmbda, refresh=(s + 1) % fns.pf == 0)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.time() - t0) / n_steps
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[7] serial training step (512x768 hop, common randomness, Wasserstein loss): "
+          f"{statistics.median(step_ms):.2f} ms median of a window of {n_steps} (CUDA "
+          f"events; first {step_ms[0]:.2f} ms), host {host_ms:.2f} ms per step; peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    return {"cli": cli, "step_ms": statistics.median(step_ms), "host_step_ms": host_ms,
+            "window_steps": n_steps, "step_peak_bytes": peak, "cpu_step_s": cpu_s,
+            "grad_l2": l2, "grad_max": mx}
 
 
 def main() -> int:
@@ -630,7 +961,8 @@ def main() -> int:
     one = [tensors[0][:, :1].contiguous(), *(t[:1] for t in tensors[1:5]),
            tensors[5][:, :, :1].contiguous()]
     kern1_ms = cuda_ms(lambda: wfd.wavefront_decode(*one, **kw))
-    plain1_ms = cuda_ms(lambda: wfd.wavefront_decode_plain(*one, **kw), warmup=0)
+    plain1_ms = cuda_ms(lambda: wfd.wavefront_decode_plain(*one, **kw), n=N_TIMED_PLAIN,
+                        warmup=0)
     bound1, by1, work1 = bound_of(one, kw)
     job0 = host_job(imgs[0], 0)
     host_times = []
@@ -641,9 +973,9 @@ def main() -> int:
                              job0["ifce"], job0["arm8"], ctx_idx, model=1)
         host_times.append(1e3 * (time.perf_counter() - t0))
     host_ms = statistics.median(host_times)
-    print(f"[4] level 0 G=1: kernel {kern1_ms:.3f} ms, plain {plain1_ms:.1f} ms, bound "
-          f"{bound1:.4f} ms ({by1}), host C++ {host_ms:.1f} ms (host clock; all medians "
-          f"of {N_TIMED})", flush=True)
+    print(f"[4] level 0 G=1: kernel {kern1_ms:.3f} ms, plain {plain1_ms:.1f} ms (median of "
+          f"{N_TIMED_PLAIN}), bound {bound1:.4f} ms ({by1}), host C++ {host_ms:.1f} ms (host "
+          f"clock); medians of {N_TIMED} but the plain version's", flush=True)
 
     # level 0 at G = 1, 8, 32: the time stays flat while G <= 132 SMs
     ref0 = wfd.wavefront_decode(*tensors, **kw)
@@ -692,17 +1024,23 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
           + f"; total {sum(split.values()):.3f} ms", flush=True)
 
-    # ------------------------------------------------ 5. intra encode
+    # ------------------------------------------ 5-7. the intra encoder
     with tempfile.TemporaryDirectory() as wd:
-        enc = encode_phase(dev, frames[0], Path(wd))
+        wd = Path(wd)
+        (wd / "p5").mkdir()
+        enc = encode_phase(dev, frames[0], wd / "p5")
+        rdoq = rdoq_phase(dev, wd / "p5", wd / "p6")
+        wass = wasserstein_phase(dev, wd / "p5" / "target.ppm", wd / "p7")
 
     kernels = [{
         "name": "wavefront_decode",
         "route": "cuda",
         "source": "coolchic_tpu_torch/csrc/wavefront_decode.cu",
         "replaces": "coolchic_tpu/ops/pallas_decode.py:437",
-        "launches": launches,
-        "launches_by_path": {"decode_images": launches, "cc_encode": enc["launches"]},
+        "launches": rdoq["cli"]["launches"],
+        "launches_by_path": {"decode_images": launches, "cc_encode --no_rdoq": enc["launches"],
+                             "cc_encode": rdoq["cli"]["launches"],
+                             "cc_encode --tune wasserstein": wass["cli"]["launches"]},
         "max_abs_err": max_abs_err,
         "ms": kern1_ms,
         "plain_ms": plain1_ms,
@@ -722,6 +1060,8 @@ def main() -> int:
         "mpix_per_s": mpix / batch_ms * 1e3,
     }]
     print(json.dumps({"encode_512x768_hop": enc, "card": card}), flush=True)
+    print(json.dumps({"rdoq_512x768_hop": rdoq, "card": card}), flush=True)
+    print(json.dumps({"wasserstein_512x768_hop": wass, "card": card}), flush=True)
     tmp.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,19 +1,21 @@
 """Encode one intra frame of an image or video with the PyTorch port.
 
     python -m coolchic_tpu_torch.cc_encode -i img.ppm -o out.cool \\
-        --dec_cfg_residue hop --lmbda 1e-3 --no_rdoq [--profile tpu] [--device cpu]
+        --dec_cfg_residue hop --lmbda 1e-3 [--profile tpu] [--device cpu] \\
+        [--no_rdoq] [--tune wasserstein]
 
 The I-frame counterpart of the repo's cc_encode.py: the same 3-level
 configuration (argument defaults < config file or operating-point name
-given by --dec_cfg_residue < explicit command line), the same recipes and
-bitstream profiles, `--device` (default cuda) in place of `--cpu`. Every
-encode is decoded back by the port's own decoder; a PSNR more than 0.3 dB
-off the encoder's, or a real rate more than 20 % off its estimate, exits
-non-zero.
+given by --dec_cfg_residue < explicit command line), the same recipes,
+bitstream profiles and RDOQ (on unless --no_rdoq), `--tune wasserstein`
+(common randomness, the serial trainer, refused for .yuv input),
+`--device` (default cuda) in place of `--cpu`. The workdir gets param.txt,
+archi.txt, the summary and reference-schema encoder TSVs, the detailed
+logs and the decoder TSV. Every encode is decoded back by the port's own
+decoder; a PSNR more than 0.3 dB off the encoder's, or a real rate more
+than 20 % off its estimate, exits non-zero.
 
-RDOQ is not ported yet, so the CLI refuses to run without --no_rdoq (an
-encode must not silently differ from the JAX CLI's default). Not ported
-yet either: P/B frames, --tune wasserstein, archi.txt and the detailed logs.
+Not ported yet: P/B frames, --spatial_shard.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ def build_parser() -> ConfigArgParser:
     p.add("--nobitstream", action="store_true", help="don't write a bitstream")
     p.add("--workdir", default=None, help="working directory (decoded frame etc.)")
     p.add("--lmbda", type=float, default=1e-3, help="rate constraint lambda")
+    p.add("--print_detailed_archi", action="store_true")
     p.add("--print_detailed_struct", action="store_true")
     p.add("--intra_pos", default="0", help='intra display positions, e.g. "0,4-7,-2"')
     p.add("--p_pos", default="", help="P-frame display positions, same format")
@@ -68,12 +71,12 @@ def build_parser() -> ConfigArgParser:
     p.add("--start_lr", type=float, default=1e-2)
     p.add("--n_itr", type=int, default=int(1e4),
           help="iterations of the main training stage")
-    p.add("--tune", default="mse", choices=["mse"])
+    p.add("--tune", default="mse", choices=["mse", "wasserstein"])
     p.add("--debug", action="store_true", help="extremely quick training")
     p.add("--recipe", default="auto",
           choices=["auto", "intra", "debug", "measure_speed"])
     p.add("--no_rdoq", action="store_true", help="skip rate-distortion-optimized "
-          "quantization of the NN parameters (required: RDOQ is not ported)")
+          "quantization of the NN parameters")
     # -------- decoder-side architecture (overridable from cfg files)
     for key, default in DEC_DEFAULTS.items():
         p.add(f"--{key}", type=type(default), default=default)
@@ -83,9 +86,6 @@ def build_parser() -> ConfigArgParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not args.no_rdoq:
-        raise SystemExit("cc_encode: RDOQ is not ported yet, and an encode without "
-                         "it differs from the JAX CLI's default; pass --no_rdoq")
 
     from coolchic_tpu_torch.core.device import resolve_device
     from coolchic_tpu_torch.train.presets import AVAILABLE_PRESETS
@@ -120,6 +120,15 @@ def main(argv: list[str] | None = None) -> int:
     with open(os.path.join(workdir, "param.txt"), "w") as f:
         f.write(parser.format_values())
 
+    if args.tune == "wasserstein":
+        if args.input.endswith(".yuv"):
+            print("--tune=wasserstein cannot be used with YUV files; use --tune=mse")
+            return 1
+        # Empirical weighting ("Perceptually optimised Cool-chic for CLIC 2025").
+        dist_weight = {"mse": 0.2, "wasserstein": 0.8 / 200}
+    else:
+        dist_weight = {"mse": 1.0}
+
     recipe = args.recipe
     if args.debug:
         recipe = "debug"
@@ -127,7 +136,7 @@ def main(argv: list[str] | None = None) -> int:
         recipe = "intra"
     preset = AVAILABLE_PRESETS[recipe](
         lmbda=args.lmbda, start_lr=args.start_lr, itr_main_training=args.n_itr,
-        dist_weight={"mse": 1.0})
+        dist_weight=dist_weight)
 
     cfg_args = {"residue": {
         k: str(getattr(args, k + "_residue")) for k in (
@@ -136,7 +145,8 @@ def main(argv: list[str] | None = None) -> int:
 
     res = encode_one_frame(frame, cs, args.input, workdir, preset, cfg_args,
                            seed=args.seed, verbose=args.verbose > 0, tune=args.tune,
-                           rdoq=False, profile=args.profile, device=device)
+                           rdoq=not args.no_rdoq, profile=args.profile, device=device)
+    _write_archi(os.path.join(workdir, "archi.txt"), res, verbose=args.print_detailed_archi)
 
     if args.nobitstream:
         print(f"--nobitstream: skipped writing {args.output} "
@@ -151,7 +161,7 @@ def main(argv: list[str] | None = None) -> int:
 
     monitor = res["monitor"]
     with monitor.timed("decode_back"):
-        rc = verify_decode_back(args, frame, res, device)
+        rc = verify_decode_back(args, frame, res, workdir, seq_name, device)
     with open(os.path.join(workdir, f"{frame.display_order:04d}-encoder_stages.json"),
               "w") as f:
         json.dump({"stages_s": monitor.phase_time_sec, "iterations":
@@ -162,14 +172,17 @@ def main(argv: list[str] | None = None) -> int:
     return rc
 
 
-def verify_decode_back(args, frame, res, device) -> int:
+def verify_decode_back(args, frame, res, workdir: str, seq_name: str, device) -> int:
     """Decode the file back with the port's decoder (reference
-    cc_encode.py:447-504): decoder PSNR within 0.3 dB of the encoder's,
-    real rate within 20 % of the encoder's estimate (latent + NN)."""
+    cc_encode.py:447-504): the decoder-measured quality goes to
+    NNNN-results_decoder.tsv; decoder PSNR within 0.3 dB of the encoder's,
+    real rate within 20 % of the encoder's estimate (the detailed logs'
+    rate_bpp, latent + NN)."""
     import numpy as np
 
     from coolchic_tpu_torch.bitstream.decode import decode_video
     from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.train.logs import write_reference_decoder_tsv
     from coolchic_tpu_torch.train.loss import dist_to_db
 
     decoded = decode_video(args.output, max_decoding_order=args.coding_idx, device=device)
@@ -185,9 +198,14 @@ def verify_decode_back(args, frame, res, device) -> int:
                                       - np.asarray(original.data, np.float32))))
     psnr_dec = dist_to_db(mse)
     rate_dec_bpp = 8 * res["n_bytes"] / original.n_pixels
+    write_reference_decoder_tsv(
+        os.path.join(workdir, f"{frame.display_order:04d}-results_decoder.tsv"),
+        loss=mse + args.lmbda * rate_dec_bpp, psnr_db=psnr_dec, rate_bpp=rate_dec_bpp,
+        lmbda=args.lmbda, seq_name=seq_name, n_pixels=original.n_pixels,
+        display_order=frame.display_order, coding_order=frame.coding_order)
 
     psnr_enc = float(res["logs"].psnr_db)
-    est_bpp = float(res["est_rate_bpp"])
+    est_bpp = float(res["detailed"]["rate_bpp"])
     print(f"decoder check: psnr {psnr_dec:.3f} dB (encoder {psnr_enc:.3f}), "
           f"rate {rate_dec_bpp:.4f} bpp (encoder estimate {est_bpp:.4f})")
     if abs(psnr_dec - psnr_enc) > 0.3:
@@ -199,6 +217,26 @@ def verify_decode_back(args, frame, res, device) -> int:
               f"estimate {est_bpp:.4f} by more than 20%", file=sys.stderr)
         return 2
     return 0
+
+
+def _write_archi(path: str, res: dict, verbose: bool = False) -> None:
+    """archi.txt: each cool-chic's config and its MAC per decoded pixel,
+    per module (the JAX CLI's _write_archi)."""
+    from coolchic_tpu_torch.utils.complexity import macs_per_module, total_mac_per_pixel
+
+    lines = []
+    for cc_name, cfg in res["fcfg"].cc_cfgs.items():
+        lines.append(f"== {cc_name} ==")
+        lines.append(repr(cfg))
+        lines.append(f"mac_per_pixel total: {total_mac_per_pixel(cfg):.1f}")
+        for mod, macs in macs_per_module(cfg).items():
+            lines.append(f"mac_per_pixel {mod}: {macs:.1f}")
+        lines.append("")
+    text = "\n".join(lines)
+    with open(path, "w") as f:
+        f.write(text)
+    if verbose:
+        print(text, flush=True)
 
 
 if __name__ == "__main__":

@@ -18,12 +18,14 @@ package is not ported.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import torch
 
 from coolchic_tpu_torch.core.arch import CoolChicConfig
 from coolchic_tpu_torch.core.laplace import rate_bits
+from coolchic_tpu_torch.core.noise import common_randomness_grids
 from coolchic_tpu_torch.core.quantizer import clip, quantize
 from coolchic_tpu_torch.models.arm import (
     arm_apply,
@@ -33,7 +35,11 @@ from coolchic_tpu_torch.models.arm import (
     ifce_init,
 )
 from coolchic_tpu_torch.models.synthesis import synthesis_apply, synthesis_init
-from coolchic_tpu_torch.models.upsampling import upsampling_apply, upsampling_init
+from coolchic_tpu_torch.models.upsampling import (
+    fixed_upsampling,
+    upsampling_apply,
+    upsampling_init,
+)
 from coolchic_tpu_torch.ops.context import spatial_context
 from coolchic_tpu_torch.ops.resize import interpolate, interpolate_x2
 
@@ -145,17 +151,51 @@ def latent_rate(params: dict, cfg: CoolChicConfig, grids: list[torch.Tensor]
     return rate_bits(flat_latent, mu, scale), mu, scale
 
 
+@lru_cache(maxsize=4)
+def _cr_grids_np(sizes: tuple) -> tuple:
+    # the normative generator runs in Python, ~1 s per 512x768 pyramid
+    return tuple(common_randomness_grids(list(sizes)))
+
+
+def make_cr_grids(cfg: CoolChicConfig, device: torch.device | str = "cpu"
+                  ) -> Optional[list[torch.Tensor]]:
+    """Deterministic common-randomness grids (largest first), or None."""
+    if not cfg.flag_common_randomness:
+        return None
+    return [torch.tensor(g, device=device) for g in _cr_grids_np(cfg.size_per_latent_cr)]
+
+
+def synthesis_input(cfg: CoolChicConfig, dense: torch.Tensor,
+                    cr: Optional[list[torch.Tensor]],
+                    no_cr: bool = False, only_cr: bool = False) -> torch.Tensor:
+    """The synthesis input of G images: the dense latent stack [G, C, H, W],
+    followed, with common randomness, by the bicubic-upsampled noise grids
+    (shared by every image). no_cr zeroes the noise half, only_cr the
+    latent half (coolchic_tpu/models/coolchic.py:synthesis_input)."""
+    x = dense
+    if cfg.flag_common_randomness:
+        ups_noise = interpolate(fixed_upsampling(cr, mode="bicubic"), cfg.img_size,
+                                "bicubic")
+        ups_noise = ups_noise[None].expand(x.shape[0], *ups_noise.shape)
+        if no_cr:
+            ups_noise = ups_noise * 0
+        if only_cr:
+            x = x * 0
+        x = torch.cat([x, ups_noise], dim=1)
+    return x
+
+
 def coolchic_forward(params: dict, cfg: CoolChicConfig, *,
                      noise: Optional[list[torch.Tensor]] = None,
                      quantizer_type: str = "softround",
                      soft_round_temperature=0.35,
                      training: bool = True,
-                     ac_max_val: int = -1) -> CoolChicOutput:
+                     ac_max_val: int = -1,
+                     cr: Optional[list[torch.Tensor]] = None,
+                     no_cr: bool = False, only_cr: bool = False) -> CoolChicOutput:
     """Batched forward (every params leaf [G, ...]). training=False is the
-    decoder's view: hardround latents, no noise. Common randomness
-    (--tune wasserstein) is not ported to the encoder yet."""
-    if cfg.flag_common_randomness:
-        raise NotImplementedError("the port's encoder has no common randomness yet")
+    decoder's view: hardround latents, no noise. `cr`: the common-randomness
+    grids (make_cr_grids) when the config has them (--tune wasserstein)."""
     if not training:
         quantizer_type, noise = "hardround", None
 
@@ -170,6 +210,7 @@ def coolchic_forward(params: dict, cfg: CoolChicConfig, *,
     ups = params["upsampling"]
     dense = upsampling_apply(ups["tconv_half"], ups["conv_half"], syn_grids,
                              cfg.ups_k_size, cfg.ups_preconcat_k_size)
-    syn_out = synthesis_apply(params["synthesis"], cfg.parsed_synthesis, dense)
+    syn_in = synthesis_input(cfg, dense, cr, no_cr=no_cr, only_cr=only_cr)
+    syn_out = synthesis_apply(params["synthesis"], cfg.parsed_synthesis, syn_in)
     raw_out = interpolate(syn_out, cfg.img_size, cfg.final_upsampling_type)
     return CoolChicOutput(raw_out=raw_out, rate=rate, latents=grids)

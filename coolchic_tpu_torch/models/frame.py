@@ -19,7 +19,7 @@ import torch
 
 from coolchic_tpu_torch.core.arch import CoolChicConfig
 from coolchic_tpu_torch.core.quantizer import clip
-from coolchic_tpu_torch.models.coolchic import coolchic_forward, coolchic_init
+from coolchic_tpu_torch.models.coolchic import coolchic_forward, coolchic_init, make_cr_grids
 
 
 @dataclass(frozen=True)
@@ -74,6 +74,11 @@ def frame_encoder_init(generator: torch.Generator, fcfg: FrameConfig,
     return params
 
 
+def frame_cr_grids(fcfg: FrameConfig, device: torch.device | str = "cpu") -> dict:
+    """{cc name: its common-randomness grids, or None}."""
+    return {name: make_cr_grids(cfg, device) for name, cfg in fcfg.cc_cfgs.items()}
+
+
 def _to_420(x: torch.Tensor) -> dict:
     b, c, h, w = x.shape
     y = x[:, 0:1]
@@ -86,18 +91,20 @@ def frame_encoder_forward(params: dict, fcfg: FrameConfig, *,
                           quantizer_type: str = "softround",
                           soft_round_temperature=0.3,
                           training: bool = True,
-                          ac_max_val: int = -1) -> FrameEncoderOutput:
+                          ac_max_val: int = -1,
+                          cr: Optional[dict] = None) -> FrameEncoderOutput:
     """Batched I-frame forward. `noise`: {cc name: [one tensor per grid]}
-    or None. Returns the decoded image(s) [G, C, H, W] (a dict of planes
-    for yuv420), clipped to [0, 1], and rounded to the bitdepth when not
-    training."""
+    or None; `cr`: frame_cr_grids' dict, or None. Returns the decoded
+    image(s) [G, C, H, W] (a dict of planes for yuv420), clipped to [0, 1],
+    and rounded to the bitdepth when not training."""
     _intra_only(fcfg)
     cc_out = {}
     for name, cfg in fcfg.cc_cfgs.items():
         cc_out[name] = coolchic_forward(
             params[name], cfg, noise=None if noise is None else noise.get(name),
             quantizer_type=quantizer_type, soft_round_temperature=soft_round_temperature,
-            training=training, ac_max_val=ac_max_val)
+            training=training, ac_max_val=ac_max_val,
+            cr=None if cr is None else cr.get(name))
 
     rate = {name: out.rate for name, out in cc_out.items()}
     decoded = cc_out["residue"].raw_out

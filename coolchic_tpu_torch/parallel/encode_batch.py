@@ -15,6 +15,7 @@ mesh / shard_map branch of the JAX package is not ported.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,7 +41,8 @@ def _select(mask_b: torch.Tensor, new: list, old: list) -> list:
 
 def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerPhase,
                    monitor: EncoderMonitor, verbose: bool, *, noise_source,
-                   seed_soap: bool = True) -> tuple[dict, torch.Tensor]:
+                   seed_soap: bool = True, cr: Optional[dict] = None
+                   ) -> tuple[dict, torch.Tensor]:
     """One training phase over the batch; returns (best params per image,
     best loss [G]).
 
@@ -49,7 +51,9 @@ def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerP
     levels (the JAX package's per-slot λ and noise rows serve its batched
     multi-image encode, not ported yet). `noise_source` draws the noise
     (train.TorchNoise, or a test's injected draws). `seed_soap=False` skips
-    the SOAP seeding gradient, as the JAX warm-up does."""
+    the SOAP seeding gradient, as the JAX warm-up does. `cr`: the
+    common-randomness grids every slot shares (models/frame.py:
+    frame_cr_grids), or None."""
     like = params_b
     leaves = [x.detach() for x in tree_leaves(params_b)]
     dev = leaves[0].device
@@ -59,7 +63,7 @@ def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerP
 
     fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
                    phase.dist_weight, tuple(phase.betas_model), tuple(phase.betas_latent),
-                   phase.precondition_frequency_model)
+                   phase.precondition_frequency_model, cr=cr)
     opt = init_opt_state(leaves, fns.groups, fns.hp_weight, fns.hp_latent)
 
     def draw(kind, noise_now: np.ndarray):

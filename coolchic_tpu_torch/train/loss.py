@@ -1,9 +1,9 @@
 """Rate-distortion loss: L = sum_d w_d * D_d + lambda * (R_latent + R_nn) / n_pixels.
 
-Distortion: MSE (YUV420 weighted by per-plane pixel counts). Out-of-[0,1]
-targets are renormalized on the fly. Batched: every input carries a leading
-axis of G images and every output field is [G]. The Wasserstein
-distortion is not ported yet.
+Distortions: MSE (YUV420 weighted by per-plane pixel counts) and
+Wasserstein (train/wasserstein.py). Out-of-[0,1] targets are renormalized
+on the fly. Batched: every input carries a leading axis of G images and
+every output field is [G].
 
 Reference parity: coolchic/training/loss.py and coolchic_tpu/train/loss.py.
 """
@@ -51,8 +51,11 @@ class LossOutput(NamedTuple):
 
 def loss_function(decoded_image, rate_latent_bit: Dict[str, torch.Tensor], target_image,
                   dist_weight: Dict[str, float], lmbda,
-                  total_rate_nn_bit: float = 0.0) -> LossOutput:
-    """`lmbda`: a float or a [G] tensor (one rate point per image)."""
+                  total_rate_nn_bit: float = 0.0,
+                  wasserstein_fn=None) -> LossOutput:
+    """`lmbda`: a float or a [G] tensor (one rate point per image).
+    `wasserstein_fn(decoded, target) -> [G]` computes the "wasserstein"
+    term of `dist_weight` (train/wasserstein.py:make_wasserstein_fn)."""
     if not isinstance(target_image, dict):
         # Renormalize out-of-range targets (e.g. raw flow pretraining
         # targets), per image and without a host sync.
@@ -68,10 +71,18 @@ def loss_function(decoded_image, rate_latent_bit: Dict[str, torch.Tensor], targe
     dist = 0.0
     mse = None
     for name, w in dist_weight.items():
-        if name != "mse":
-            raise NotImplementedError(f"distortion {name!r} is not ported yet")
+        if name == "mse":
+            cur = compute_mse(decoded_image, target_image)
+            mse = cur
+        elif name == "wasserstein":
+            if wasserstein_fn is None:
+                raise ValueError("wasserstein distortion requested but no extractor given")
+            cur = wasserstein_fn(decoded_image, target_image)
+        else:
+            raise ValueError(f"Unknown distortion {name}")
+        dist = dist + w * cur
+    if mse is None:
         mse = compute_mse(decoded_image, target_image)
-        dist = dist + w * mse
 
     if isinstance(decoded_image, dict):
         n_pixels = decoded_image["y"].shape[-2] * decoded_image["y"].shape[-1]

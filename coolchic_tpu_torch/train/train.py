@@ -8,11 +8,17 @@ Adam (latents), and the QR eigenbasis refresh on every
 batched over a leading axis of G images (parallel/encode_batch.py drives
 the windows); the host reads losses only at the validation points.
 
+The serial trainer `train()` runs one phase of one image (G = 1) with the
+JAX package's patience rule (stop, or reload the best model when the lr is
+scheduled); the encoder uses it for common-randomness configs, as the JAX
+package does (coolchic_tpu/train/video.py:161-198).
+
 Reference parity: coolchic/training/train.py (per-group optimizers, cosine
 LR stepping once per validation, linear temperature & noise schedules,
 patience that reloads the best model when schedule_lr is on), through
-coolchic_tpu/train/train.py:_make_fns_impl, whose lax.scan windows become a
-Python loop of steps here.
+coolchic_tpu/train/train.py:_make_fns_impl and train, whose lax.scan
+windows become a Python loop of steps here. The spatial-mesh branches are
+not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from coolchic_tpu_torch.core.quantizer import sample_noise
 from coolchic_tpu_torch.models.frame import FrameConfig, frame_encoder_forward
 from coolchic_tpu_torch.train.loss import LossOutput, dist_to_db, loss_function
+from coolchic_tpu_torch.train.presets import TrainerPhase
 from coolchic_tpu_torch.train.params import (
     FROZEN,
     WEIGHT,
@@ -42,6 +49,7 @@ from coolchic_tpu_torch.train.soap import (
     soap_init_leaf,
     soap_step_leaf,
 )
+from coolchic_tpu_torch.train.wasserstein import make_wasserstein_fn
 
 ETA_MIN = 1e-5
 
@@ -70,8 +78,10 @@ class EncoderMonitor:
     """Per-encode bookkeeping (reference utils/misc.py training timing
     prints): iteration counts, wall-clock per pipeline stage, and the card's
     peak allocated memory. A stage's time ends with a synchronize of the
-    card, so it holds the device work it queued."""
+    card, so it holds the device work it queued. total_training_time_sec
+    sums the serial trainer's phases, as in the JAX package."""
 
+    total_training_time_sec: float = 0.0
     iterations_counter: int = 0
     phase_time_sec: dict = field(default_factory=dict)
     peak_device_bytes: int = 0
@@ -133,8 +143,10 @@ class PhaseFns:
     def __init__(self, fcfg: FrameConfig, like: dict, quantizer_noise_type: str,
                  quantizer_type: str, dist_weight: Dict[str, float],
                  betas_model: tuple, betas_latent: tuple,
-                 precondition_frequency_model: int):
+                 precondition_frequency_model: int, cr: Optional[dict] = None):
         self.fcfg = fcfg
+        self.cr = cr
+        self._wd = None   # (target, its Wasserstein fn): target features once
         self.like = like
         self.groups = group_tree(like)
         self.quantizer_noise_type = quantizer_noise_type
@@ -150,12 +162,28 @@ class PhaseFns:
         self.need_noise = (quantizer_type in ("none", "softround")
                            and quantizer_noise_type != "none")
 
+    def wasserstein_fn(self, target):
+        """The Wasserstein term's fn for `target`, its VGG features computed
+        on the first call with that target (one image's, when the batch is a
+        broadcast of it: the warm-up and the NN-quantization trials expand
+        one target anew for each batch); None when the phase has no such
+        term. The cache holds the target, so a tensor at the same address
+        and shape shares its storage."""
+        if "wasserstein" not in self.dist_weight:
+            return None
+        one = target[:1] if target.shape[0] > 1 and target.stride(0) == 0 else target
+        if (self._wd is None or self._wd[0].data_ptr() != one.data_ptr()
+                or self._wd[0].shape != one.shape):
+            self._wd = (one, make_wasserstein_fn(one))
+        return self._wd[1]
+
     def loss(self, leaves: list, noise, temp, target, lmbda) -> LossOutput:
         out = frame_encoder_forward(
             tree_unflatten(self.like, leaves), self.fcfg, noise=noise,
             quantizer_type=self.quantizer_type, soft_round_temperature=temp,
-            training=True)
-        return loss_function(out.decoded_image, out.rate, target, self.dist_weight, lmbda)
+            training=True, cr=self.cr)
+        return loss_function(out.decoded_image, out.rate, target, self.dist_weight, lmbda,
+                             wasserstein_fn=self.wasserstein_fn(target))
 
     def grads(self, leaves: list, noise, temp, target, lmbda) -> list:
         """d(sum of the images' losses)/d(leaf) per trainable leaf (zeros
@@ -215,9 +243,9 @@ class PhaseFns:
         """The decoder's view (hardround latents, bitdepth-rounded image)."""
         with torch.no_grad():
             out = frame_encoder_forward(tree_unflatten(self.like, leaves), self.fcfg,
-                                        training=False)
+                                        training=False, cr=self.cr)
             return loss_function(out.decoded_image, out.rate, target, self.dist_weight,
-                                 lmbda)
+                                 lmbda, wasserstein_fn=self.wasserstein_fn(target))
 
 
 def init_opt_state(leaves: list, groups: list, hp_weight: SoapHyperParams,
@@ -246,13 +274,13 @@ def logs_from_loss(lo: LossOutput, i: int = 0) -> EncoderLogs:
                        rate_bpp=v["rate_bpp"])
 
 
-def test(params: dict, fcfg: FrameConfig, target,
+def test(params: dict, fcfg: FrameConfig, target, cr: Optional[dict] = None,
          dist_weight: Optional[Dict[str, float]] = None, lmbda: float = 1e-3
          ) -> EncoderLogs:
     """Eval logs of one image's params (no batch axis) against its
     [1, C, H, W] target."""
     fns = PhaseFns(fcfg, params, "none", "hardround", dist_weight or {"mse": 1.0},
-                   (0.95, 0.95), (0.9, 0.999), 10)
+                   (0.95, 0.95), (0.9, 0.999), 10, cr=cr)
     leaves = [x[None] for x in tree_leaves(params)]
     return logs_from_loss(fns.eval(leaves, target, lmbda))
 
@@ -265,3 +293,83 @@ def stack_trees(trees: list):
 
 def index_tree(tree, i: int):
     return tree_map(lambda x: x[i], tree)
+
+
+def train(params: dict, fcfg: FrameConfig, target, phase: TrainerPhase, *,
+          noise_source, cr: Optional[dict] = None,
+          monitor: Optional[EncoderMonitor] = None, verbose: bool = False) -> dict:
+    """Run one training phase of one image; returns the best parameters
+    found (tensors, no batch axis). `params`: one image's tensors on the
+    device; `target`: its [1, C, H, W] (or planes); `noise_source` as in
+    parallel/encode_batch.py:_batched_phase.
+
+    The port of coolchic_tpu/train/train.py:train (less the spatial mesh):
+    SOAP bases seeded from a first gradient, an eval before the first
+    window and after each, the best parameters kept, and after more than
+    patience / freq_valid windows without a record either a reload of the
+    best parameters (schedule_lr) or the end of the phase."""
+    monitor = monitor or EncoderMonitor()
+    start_time = time.time()
+    like = tree_map(lambda x: x[None], params)
+    leaves = [x.detach() for x in tree_leaves(like)]
+    dev = leaves[0].device
+    fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
+                   phase.dist_weight, tuple(phase.betas_model), tuple(phase.betas_latent),
+                   phase.precondition_frequency_model, cr=cr)
+    opt = init_opt_state(leaves, fns.groups, fns.hp_weight, fns.hp_latent)
+    lmbda = torch.full((1,), phase.lmbda, dtype=torch.float32, device=dev)
+
+    def draw(kind: str, level: float):
+        level_t = torch.full((1,), level, dtype=torch.float32, device=dev)
+        return lambda: noise_source(kind, fcfg, 1, phase.quantizer_noise_type, level_t,
+                                    fns.need_noise)
+
+    # Reference parity: seed the SOAP eigenbases from the first gradient
+    # (one extra gradient; the phase's first step then takes a fresh one).
+    temp0 = linear_schedule(phase.softround_temperature, 0, phase.max_itr)
+    noise0 = linear_schedule(phase.noise_parameter, 0, phase.max_itr)
+    grads = fns.grads(leaves, draw("seed", noise0)(), temp0, target, lmbda)
+    opt = seed_opt_state(opt, grads, fns.groups, fns.hp_weight)
+
+    best = logs_from_loss(fns.eval(leaves, target, lmbda))
+    initial, best_leaves = best, leaves
+
+    n_windows = math.ceil(phase.max_itr / phase.freq_valid)
+    t_max = phase.max_itr / phase.freq_valid
+    patience_windows = max(phase.patience // phase.freq_valid, 1)
+    cnt = 0
+    windows_since_record = 0
+    for w_idx in range(n_windows):
+        if windows_since_record > patience_windows:
+            if not phase.schedule_lr:
+                break
+            leaves = best_leaves
+            windows_since_record = 0
+
+        lr = cosine_lr(phase.lr, w_idx, t_max) if phase.schedule_lr else phase.lr
+        temp = linear_schedule(phase.softround_temperature, cnt, phase.max_itr)
+        noise = linear_schedule(phase.noise_parameter, cnt, phase.max_itr)
+        n_steps = min(phase.freq_valid, phase.max_itr - cnt)
+        leaves, opt = fns.window(leaves, opt, draw("step", noise), n_steps, temp,
+                                 torch.tensor(lr, dtype=torch.float32, device=dev),
+                                 target, lmbda)
+        cnt += n_steps
+        monitor.iterations_counter += n_steps
+
+        logs = logs_from_loss(fns.eval(leaves, target, lmbda))
+        if logs.loss < best.loss:
+            best, best_leaves = logs, leaves
+            windows_since_record = 0
+        else:
+            windows_since_record += 1
+        if verbose:
+            print(f"  itr {cnt:>6} loss {logs.loss * 1e3:9.4f} "
+                  f"psnr {logs.psnr_db:7.3f} bpp {logs.total_rate_latent_bpp:7.4f} "
+                  f"lr {lr:.5f} temp {temp:.3f} noise {noise:.3f}"
+                  + ("  *" if logs.loss == best.loss else ""), flush=True)
+
+    monitor.total_training_time_sec += time.time() - start_time
+    if verbose:
+        print(f"  phase done: loss {initial.loss * 1e3:.4f} -> {best.loss * 1e3:.4f} "
+              f"({best.psnr_db:.3f} dB, {best.total_rate_latent_bpp:.4f} bpp)", flush=True)
+    return index_tree(tree_unflatten(like, best_leaves), 0)

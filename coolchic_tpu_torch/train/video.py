@@ -1,19 +1,21 @@
 """Per-frame encode pipeline, I frames: warm-up tournament -> training phases
--> NN quantization -> bitstream write -> decoded-frame save.
+-> NN quantization -> RDOQ -> bitstream write -> decoded-frame save and the
+detailed logs.
 
 The port of the I path of coolchic_tpu/train/video.py (encode_one_frame,
 _prep_frame, _quantize_frame, _finalize_frame). Every stage runs on the
 requested device; the host does the SOAP eigh seeding, the NN quantization
-bookkeeping and the range coding, as in the JAX package.
+and RDOQ bookkeeping and the range coding, as in the JAX package. The main
+phases run the batched window at n = 1, or, for a config with common
+randomness (--tune wasserstein), the serial trainer train.train(), as the
+JAX package chooses.
 
 Noise and initial weights come from torch.Generators seeded from (seed,
 display order, phase index), the role of _frame_phase_key in the JAX
 package; the streams differ from JAX's PRNG, so the port's encode of an
 image is not the JAX encode's bit for bit, only its equal in RD terms.
 
-Not ported yet: P/B frames, RDOQ (rdoq=True raises), the detailed logs
-(train/logs.py), the serial trainer for common-randomness configs, the
-spatial mesh.
+Not ported yet: P/B frames, the spatial mesh.
 """
 
 from __future__ import annotations
@@ -26,15 +28,26 @@ import numpy as np
 import torch
 
 from coolchic_tpu_torch.bitstream.encode import encode_frame
-from coolchic_tpu_torch.bitstream.nncodec import flatten_module_params
 from coolchic_tpu_torch.core.device import resolve_device
 from coolchic_tpu_torch.io.framedata import FrameData
 from coolchic_tpu_torch.io.io import load_frame_data_from_file, save_frame_data_to_file
-from coolchic_tpu_torch.models.frame import FrameConfig, frame_encoder_forward, frame_encoder_init
+from coolchic_tpu_torch.io.yuv import convert_420_to_444
+from coolchic_tpu_torch.models.frame import (
+    FrameConfig,
+    frame_cr_grids,
+    frame_encoder_forward,
+    frame_encoder_init,
+)
 from coolchic_tpu_torch.models.params import tree_from_numpy, tree_to_numpy
-from coolchic_tpu_torch.nnquant.quantize import exp_golomb_nbins, quantize_coolchic
+from coolchic_tpu_torch.nnquant.quantize import quantize_coolchic
+from coolchic_tpu_torch.nnquant.rdoq import rdoq_coolchic
 from coolchic_tpu_torch.parallel.encode_batch import _batched_phase
 from coolchic_tpu_torch.train.encode import _target_from_frame, img_min_max
+from coolchic_tpu_torch.train.logs import (
+    detailed_test,
+    write_detailed_tsv,
+    write_reference_encoder_tsv,
+)
 from coolchic_tpu_torch.train.params import tree_leaves, tree_map
 from coolchic_tpu_torch.train.presets import Preset
 from coolchic_tpu_torch.train.train import (
@@ -44,6 +57,7 @@ from coolchic_tpu_torch.train.train import (
     index_tree,
     stack_trees,
     test,
+    train,
 )
 from coolchic_tpu_torch.train.warmup import warmup_batched
 from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder, save_frame_encoder
@@ -75,6 +89,12 @@ def _decoded_name(display_idx: int, fdata: FrameData, video_path: str) -> str:
             f"{fdata.bitdepth}b.yuv")
 
 
+def _dense(frame: FrameData) -> np.ndarray:
+    if frame.frame_data_type == "yuv420":
+        return convert_420_to_444(frame.data)
+    return np.asarray(frame.data)
+
+
 def _frame_phase_generator(seed: int, display_order: int, phase_idx: int,
                            device: torch.device) -> torch.Generator:
     """Per-(frame, phase) generator, independent of batch composition: the
@@ -89,12 +109,10 @@ def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path
                      seed: int = 0, verbose: bool = True, rdoq: bool = True,
                      tune: str = "mse", profile: str = "ref",
                      device: str | torch.device = "cuda") -> dict:
-    """Encode one I frame on `device`; returns {payload bytes, logs, ...}.
-    The decoded frame is written to the workdir."""
+    """Encode one I frame on `device`; returns {payload bytes, logs,
+    detailed logs, ...}. The decoded frame and the logs are written to the
+    workdir."""
     dev = resolve_device(device)
-    if rdoq:
-        raise NotImplementedError("RDOQ is not ported yet: pass rdoq=False "
-                                  "(--no_rdoq)")
     if frame.frame_type != "I":
         raise NotImplementedError(f"{frame.frame_type} frames are not encoded by "
                                   "the port yet (I only)")
@@ -112,28 +130,38 @@ def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path
 
     prep = _prep_frame(frame, fdata, preset, cfg_args, seed, tune, dev)
     fcfg, target, monitor = prep["fcfg"], prep["target"], prep["monitor"]
-    candidates = prep["candidates"]
+    candidates, cr = prep["candidates"], prep["cr"]
 
     if preset.warmup.phases:
         noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, -1, dev))
         with monitor.timed("warmup"):
             params = warmup_batched(candidates, preset, fcfg, target, noise_source=noise,
-                                    monitor=monitor, verbose=verbose)
+                                    cr=cr, monitor=monitor, verbose=verbose)
     else:
         params = candidates[0]
 
     # The main phases run the batched window at n = 1 with the frame's own
-    # noise stream, as the JAX package's serial path does.
-    params_b = stack_trees([params])
-    for idx, phase in enumerate(preset.training_phases):
-        noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, idx, dev))
-        with monitor.timed(f"train_phase_{idx}"):
-            params_b, _ = _batched_phase(params_b, target, fcfg, phase, monitor, verbose,
-                                         noise_source=noise)
-    params = tree_to_numpy(index_tree(params_b, 0))
+    # noise stream, as the JAX package's serial path does; a config with
+    # common randomness runs them through the serial trainer, as the JAX
+    # package does (its batched window carries no cr).
+    if any(v is not None for v in cr.values()):
+        for idx, phase in enumerate(preset.training_phases):
+            noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, idx, dev))
+            with monitor.timed(f"train_phase_{idx}"):
+                params = train(params, fcfg, target, phase, noise_source=noise, cr=cr,
+                               monitor=monitor, verbose=verbose)
+        params = tree_to_numpy(params)
+    else:
+        params_b = stack_trees([params])
+        for idx, phase in enumerate(preset.training_phases):
+            noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, idx, dev))
+            with monitor.timed(f"train_phase_{idx}"):
+                params_b, _ = _batched_phase(params_b, target, fcfg, phase, monitor,
+                                             verbose, noise_source=noise)
+        params = tree_to_numpy(index_tree(params_b, 0))
 
-    params, nn_side_info, _ = _quantize_frame(params, fcfg, preset, target, fdata,
-                                              monitor, verbose, dev)
+    params, nn_side_info = _quantize_frame(params, fcfg, preset, target, fdata, monitor,
+                                           verbose, dev, rdoq=rdoq, cr=cr)
 
     if verbose:
         print(f"frame {frame.frame_type}{frame.display_order}: "
@@ -156,10 +184,6 @@ def _prep_frame(frame: Frame, fdata: FrameData, preset: Preset,
         coolchic_config_from_args(args, (h, w), coolchic_name=name,
                                   frame_type=frame.frame_type, tune=tune),
         encoder_gain=gain) for name, args in cfg_args.items()}
-    if any(c.flag_common_randomness for c in cfgs.values()):
-        raise NotImplementedError("common randomness (--tune wasserstein) needs the "
-                                  "serial trainer, which is not ported yet")
-
     fcfg = FrameConfig(
         coolchic_cfg=cfgs, frame_type=frame.frame_type,
         frame_data_type=fdata.frame_data_type, bitdepth=fdata.bitdepth,
@@ -172,17 +196,18 @@ def _prep_frame(frame: Frame, fdata: FrameData, preset: Preset,
     candidates = [frame_encoder_init(gen, fcfg, stats, device=device)
                   for _ in range(n_candidates)]
     return {"fcfg": fcfg, "target": _target_from_frame(fdata, device),
+            "cr": frame_cr_grids(fcfg, device),
             "monitor": EncoderMonitor(device=device), "candidates": candidates}
 
 
 def _grid_scorer(params: dict, fcfg: FrameConfig, cc_name: str, target, lmbda: float,
-                 dist_weight: dict, device: torch.device):
+                 dist_weight: dict, device: torch.device, cr: Optional[dict] = None):
     """score(trials) for quantize_coolchic: the frame's eval loss (decoder's
     view, no NN rate) with cc `cc_name` replaced by each trial, the trials
     run as the batch axis in chunks of the _EVAL_BATCH_PX budget. Leaves
     shared by every trial go to the device once and are broadcast."""
     fns = PhaseFns(fcfg, params, "none", "hardround", dist_weight,
-                   (0.95, 0.95), (0.9, 0.999), 10)
+                   (0.95, 0.95), (0.9, 0.999), 10, cr=cr)
     h, w = fcfg.cc_cfgs["residue"].img_size
     chunk = max(1, _EVAL_BATCH_PX // (h * w))
     on_device: dict[int, tuple] = {}
@@ -214,58 +239,49 @@ def _grid_scorer(params: dict, fcfg: FrameConfig, cc_name: str, target, lmbda: f
 
 def _quantize_frame(params: dict, fcfg: FrameConfig, preset: Preset, target,
                     fdata: FrameData, monitor: EncoderMonitor, verbose: bool,
-                    device: torch.device) -> tuple[dict, dict, float]:
-    """NN quantization of every cool-chic in `params` (numpy); returns the
-    quantized params, the per-cc (q_shift, expgol) side info and the NN rate
-    in bits."""
+                    device: torch.device, *, rdoq: bool = False,
+                    cr: Optional[dict] = None) -> tuple[dict, dict]:
+    """NN quantization (+ RDOQ) of every cool-chic in `params` (numpy);
+    returns the quantized params and the per-cc (q_shift, expgol) side
+    info. RDOQ refines the residue's synthesis and upsampling against the
+    dense frame (444 for yuv420) and updates expgol in place."""
     phase0 = preset.training_phases[-1]
     nn_side_info = {}
-    nn_bits = 0.0
     for cc_name in fcfg.cc_cfgs:
         score = _grid_scorer(params, fcfg, cc_name, target, phase0.lmbda,
-                             phase0.dist_weight, device)
+                             phase0.dist_weight, device, cr=cr)
         with monitor.timed("nn_quantize"):
-            q_params, q_shift, expgol, bits = quantize_coolchic(
+            q_params, q_shift, expgol, _ = quantize_coolchic(
                 params[cc_name], fcfg.cc_cfgs[cc_name], score, phase0.lmbda,
                 fdata.n_pixels, verbose=verbose)
+        if rdoq:
+            with monitor.timed("rdoq"):
+                q_params = rdoq_coolchic(
+                    q_params, fcfg.cc_cfgs[cc_name], q_shift, expgol, phase0.lmbda,
+                    target=_dense(fdata) if cc_name == "residue" else None,
+                    frame_type=fcfg.frame_type, frame_data_type=fdata.frame_data_type,
+                    bitdepth=fdata.bitdepth, verbose=verbose, device=device)
         params = {**params, cc_name: q_params}
         nn_side_info[cc_name] = (q_shift, expgol)
-        nn_bits += bits
-    return params, nn_side_info, nn_bits
-
-
-def nn_rate_bits(params: dict, fcfg: FrameConfig, nn_side_info: dict) -> float:
-    """Exp-Golomb estimate of the NN rate, in bits (coolchic_tpu/train/
-    logs.py:detailed_test's rate_nn)."""
-    total = 0.0
-    for cc_name, (q_shift, expgol) in nn_side_info.items():
-        cfg = fcfg.cc_cfgs[cc_name]
-        for module in ("arm", "ifce", "upsampling", "synthesis"):
-            for wb in ("weight", "bias"):
-                arrays = flatten_module_params(params[cc_name], cfg, module, wb)
-                if not arrays:
-                    continue
-                q = 2.0 ** q_shift[(module, wb)]
-                ints = np.concatenate([np.round(np.asarray(a) / q).reshape(-1)
-                                       for a in arrays])
-                total += exp_golomb_nbins(ints, expgol[(module, wb)])
-    return total
+    return params, nn_side_info
 
 
 def _finalize_frame(frame: Frame, coding_structure: CodingStructure, params: dict,
                     fcfg: FrameConfig, nn_side_info: dict, fdata: FrameData,
                     workdir: str, video_path: str, verbose: bool,
                     profile: str = "ref", lmbda: float = 0.0,
-                    monitor: Optional[EncoderMonitor] = None,
-                    device: torch.device = torch.device("cpu")) -> dict:
-    """Bitstream write + decoded-frame save + the summary results TSV
-    (shared between the fresh-encode and resume-from-checkpoint paths)."""
+                    monitor: Optional[EncoderMonitor] = None, *,
+                    device: torch.device) -> dict:
+    """Bitstream write + decoded-frame save + the summary results TSV and
+    the detailed logs (shared between the fresh-encode and
+    resume-from-checkpoint paths)."""
     monitor = monitor or EncoderMonitor(device=device)
     target = _target_from_frame(fdata, device)
     n_pixels = fdata.n_pixels
     params_dev = tree_from_numpy(params, device)
+    cr = frame_cr_grids(fcfg, device)
 
-    logs = test(params_dev, fcfg, target)
+    logs = test(params_dev, fcfg, target, cr=cr)
 
     with monitor.timed("bitstream_write"):
         payload = encode_frame(params, fcfg, coding_structure, nn_side_info,
@@ -273,7 +289,7 @@ def _finalize_frame(frame: Frame, coding_structure: CodingStructure, params: dic
 
     with torch.no_grad():
         out = frame_encoder_forward(tree_map(lambda x: x[None], params_dev), fcfg,
-                                    training=False)
+                                    training=False, cr=cr)
     if fdata.frame_data_type == "yuv420":
         dec_data = {k: v.cpu().numpy() for k, v in out.decoded_image.items()}
     else:
@@ -289,15 +305,28 @@ def _finalize_frame(frame: Frame, coding_structure: CodingStructure, params: dic
         n_pixels=n_pixels, logs=logs, rate_bpp=rate_bpp,
         extra={"frame_type": fcfg.frame_type, "n_bytes": len(payload)})
 
-    # Encoder-side rate estimate incl. the NN rate (what the JAX package's
-    # detailed logs carry as rate_bpp), for the decode-back check.
-    est_rate_bpp = logs.total_rate_latent_bpp + nn_rate_bits(params, fcfg,
-                                                             nn_side_info) / n_pixels
+    # Detailed per-frame logs (reference FrameEncoderLogs, training/test.py):
+    # per-grid bpp, per-module NN bpp, MAC/px -- one wide TSV row next to the
+    # summary TSV, plus a column-identical reference-schema results TSV.
+    detailed = detailed_test(
+        params, fcfg, target, cr=cr, lmbda=lmbda, nn_side_info=nn_side_info,
+        encoding_time_second=monitor.total_training_time_sec,
+        encoding_iterations_cnt=monitor.iterations_counter,
+        display_order=frame.display_order, coding_order=frame.coding_order,
+        frame_offset=frame.frame_offset,
+        seq_name=frame.seq_name or os.path.basename(workdir), device=device)
+    detailed["frame_type"] = fcfg.frame_type
+    detailed["n_bytes"] = len(payload)
+    write_reference_encoder_tsv(
+        os.path.join(workdir, f"{frame.display_order:04d}-results_encoder_ref.tsv"),
+        detailed)
+    write_detailed_tsv(os.path.join(workdir, f"{frame.display_order:04d}-logs_detailed.tsv"),
+                       detailed)
     if verbose:
         print(f"frame {fcfg.frame_type}{frame.display_order}: "
               f"psnr {logs.psnr_db:.3f} dB, {rate_bpp:.4f} bpp "
               f"({len(payload)} bytes)", flush=True)
 
     return {"payload": payload, "logs": logs, "decoded": decoded,
-            "n_bytes": len(payload), "fcfg": fcfg, "est_rate_bpp": est_rate_bpp,
+            "n_bytes": len(payload), "fcfg": fcfg, "detailed": detailed,
             "monitor": monitor}

@@ -30,8 +30,8 @@ from coolchic_tpu_torch.train.train import EncoderMonitor, index_tree, stack_tre
 
 
 def _train_phase_batched(stacked: dict, ph: TrainerPhase, fcfg: FrameConfig, target,
-                         noise_source, monitor: EncoderMonitor
-                         ) -> tuple[dict, torch.Tensor]:
+                         noise_source, monitor: EncoderMonitor,
+                         cr: Optional[dict] = None) -> tuple[dict, torch.Tensor]:
     """One warm-up phase for a stack of candidates; returns
     (best_params_stacked, best_losses [n]). As in the JAX package, the
     lr, temperature and noise hold their starting values and the SOAP
@@ -44,7 +44,7 @@ def _train_phase_batched(stacked: dict, ph: TrainerPhase, fcfg: FrameConfig, tar
     targets = tree_map(lambda t: t.expand(n, *t.shape[1:]), target) \
         if isinstance(target, dict) else target.expand(n, *target.shape[1:])
     return _batched_phase(stacked, targets, fcfg, held, monitor, False,
-                          noise_source=noise_source, seed_soap=False)
+                          noise_source=noise_source, seed_soap=False, cr=cr)
 
 
 def candidate_chunk_size(n_pixels: int, n_candidates: int) -> int:
@@ -57,11 +57,14 @@ def candidate_chunk_size(n_pixels: int, n_candidates: int) -> int:
 
 
 def warmup_batched(candidates: list[dict], preset: Preset, fcfg: FrameConfig, target, *,
-                   noise_source, monitor: Optional[EncoderMonitor] = None,
+                   noise_source, cr: Optional[dict] = None,
+                   monitor: Optional[EncoderMonitor] = None,
                    verbose: bool = False) -> dict:
     """All surviving candidates advance together through each warm-up phase
     (chunked to the activation-memory budget); returns the winner's params
-    (no batch axis). `target`: one image's [1, C, H, W] (or planes)."""
+    (no batch axis). `target`: one image's [1, C, H, W] (or planes); `cr`:
+    the frame's common-randomness grids, carried into every phase as the
+    JAX warm-up carries them."""
     monitor = monitor or EncoderMonitor()
     n = len(candidates)
     stacked = stack_trees(candidates)
@@ -79,7 +82,8 @@ def warmup_batched(candidates: list[dict], preset: Preset, fcfg: FrameConfig, ta
         for c0 in range(0, n, chunk):
             c1 = min(c0 + chunk, n)
             sub = tree_map(lambda x: x[c0:c1], stacked)
-            bp, bl = _train_phase_batched(sub, ph, fcfg, target, noise_source, monitor)
+            bp, bl = _train_phase_batched(sub, ph, fcfg, target, noise_source, monitor,
+                                          cr=cr)
             parts_params.append(bp)
             parts_loss.append(bl)
         stacked = tree_map(lambda *xs: torch.cat(xs), *parts_params)

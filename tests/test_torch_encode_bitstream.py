@@ -84,7 +84,7 @@ def quantized(request):
                                    jax.numpy.asarray(fdata.data), None, None, fdata,
                                    JMonitor(), rdoq=False, verbose=False)
     p_fdata = p_load(IMG)
-    p_q, p_side, _ = _quantize_frame(params, pf, PresetDebug(lmbda=LMBDA, start_lr=1e-2,
+    p_q, p_side = _quantize_frame(params, pf, PresetDebug(lmbda=LMBDA, start_lr=1e-2,
                                                              itr_main_training=1),
                                      _target_from_frame(p_fdata, "cpu"), p_fdata,
                                      EncoderMonitor(), False, torch.device("cpu"))
@@ -118,7 +118,8 @@ def test_checkpoint_from_jax_finalizes_to_same_bytes(quantized, profile, tmp_pat
     cs = CodingStructure(n_frames=1, intra_pos=[0])
     frame = cs.get_frame_from_coding_order(0)
     out = _finalize_frame(frame, cs, params, fcfg, side, p_load(IMG), str(tmp_path), IMG,
-                          verbose=False, profile=profile, lmbda=LMBDA)
+                          verbose=False, profile=profile, lmbda=LMBDA,
+                          device=torch.device("cpu"))
     j_bytes = j_encode_frame(j_q, jf, JCodingStructure(n_frames=1, intra_pos=[0]), j_side,
                              is_first_frame=True, profile=profile)
     assert out["payload"] == j_bytes

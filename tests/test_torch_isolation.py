@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
     assert "coolchic_tpu_torch.ops.wavefront_decode" in res["modules"]
     assert "coolchic_tpu_torch.bitstream.device_decode" in res["modules"]
     for name in ("cc_encode", "train.video", "train.soap", "parallel.encode_batch",
-                 "nnquant.quantize", "bitstream.encode"):
+                 "nnquant.quantize", "bitstream.encode", "nnquant.rdoq", "train.logs",
+                 "train.wasserstein", "utils.complexity"):
         assert f"coolchic_tpu_torch.{name}" in res["modules"]
     assert res["leaked"] == []
     assert res["cudnn_tf32"] is False
@@ -81,12 +82,26 @@ def test_default_device_refuses_cpu_fallback(entry, tmp_path):
     assert not (tmp_path / "o.cool").exists()
 
 
-def test_cc_encode_refuses_without_no_rdoq(tmp_path):
-    """RDOQ is not ported: without --no_rdoq the CLI stops before any work
-    (an encode must not silently differ from the JAX CLI's default)."""
+def test_cc_encode_refuses_without_no_rdoq(tmp_path, monkeypatch):
+    """RDOQ is the CLI's default, as in the JAX CLI: without --no_rdoq the
+    encode runs it, with --no_rdoq it does not (while RDOQ was not ported,
+    the CLI refused to run without --no_rdoq)."""
+    import coolchic_tpu_torch.train.video as video
     from coolchic_tpu_torch import cc_encode
 
-    with pytest.raises(SystemExit, match="--no_rdoq"):
-        cc_encode.main(["-i", IMG, "-o", str(tmp_path / "o.cool"), "--device", "cpu",
-                        "--workdir", str(tmp_path)])
-    assert list(tmp_path.iterdir()) == []
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def fake_encode(*args, rdoq, **kwargs):
+        seen.append(rdoq)
+        raise Stop
+
+    monkeypatch.setattr(video, "encode_one_frame", fake_encode)
+    for extra in ([], ["--no_rdoq"]):
+        with pytest.raises(Stop):
+            cc_encode.main(["-i", IMG, "-o", str(tmp_path / "o.cool"), "--device", "cpu",
+                            "--workdir", str(tmp_path), *extra])
+    assert seen == [True, False]
+    assert not (tmp_path / "o.cool").exists()
