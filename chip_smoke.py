@@ -59,9 +59,32 @@ Phases, each fatal on failure:
      a common-randomness file decodes on the host path; on its parameters
      one training step's loss and gradients on the card against the CPU
      (phase 5's bar), and ms per serial step over one validation window of
-     the debug main phase (CUDA events), with peak memory.
+     the debug main phase (CUDA events), with peak memory;
+  8. video at full width: a synthetic 3-frame 512x768 yuv420 clip (phase
+     3's first frame resampled at a pan of t * (3.25, -1.75) px and a 1 %
+     zoom a frame about the centre, bilinear, edges replicated) encoded
+     by the CLI as I0 (--no_rdoq), P2 and B1 (RDOQ on) at the inter
+     defaults (residue hop, motion mop, warp filter 8), lambda 5e-5,
+     debug recipe, `tpu` profile, one workdir; each exit 0 (its decode-back bars),
+     seconds per stage, PSNR, bpp and peak memory per frame type;
+     decode_video of the file on the card, kernel launches counted, the
+     route of each cool-chic's group printed, every grid of both
+     cool-chics of P and B equal between the device path and the host
+     C++, each motion cool-chic's finest grid coded as 128 streams equal
+     between the kernel, its plain version and the host C++, the decoded
+     frames' luma within one code value of the encoder's saved frames on
+     under 0.1 % of the samples (chroma within two codes, more than one
+     off on under 1 %, and the decoder's PSNR within 0.05 dB of the saved
+     frame's: the reference's chroma rounding differs between encoder and
+     decoder); warp_fn card
+     against CPU within 1e-5 (eval and training) and its ms (forward,
+     forward + backward); one B training step card against CPU at phase
+     5's bar with its TF32 control; ms per P and per B training step; one
+     probe of the residue tile scorer and of the motion full scorer, P and
+     B, card against CPU; RDOQ of a `--no_rdoq` P frame never worsens its
+     bitstream objective.
 
-Prints the ablation line, the encode, RDOQ and Wasserstein lines, a
+Prints the ablation line, the encode, RDOQ, Wasserstein and video lines, a
 {"kernels": [...]} line (launches: the default CLI's, phase 6c; every
 path's in launches_by_path), then the card line, and ends with
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -85,8 +108,9 @@ ROOT = Path(__file__).resolve().parent
 N_IMAGES = 8
 N_TIMED = 5
 # The plain version takes ~30 s a level-0 grid (thousands of eager
-# launches): phase 4 times it over fewer runs, to keep the run's time.
-N_TIMED_PLAIN = 3
+# launches) and its time is no yardstick: phase 4 times it once, to keep
+# the run's time.
+N_TIMED_PLAIN = 1
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # rate, and the CUDA-core (non-tensor) rate, at which int32 multiply-adds
 # issue at most.
@@ -246,10 +270,11 @@ def check_file_grids(out: Path, dev) -> list:
     return k_levels
 
 
-def step_on(d, params, fcfg, tgt, phase, noise, cr_on=None):
+def step_on(d, params, fcfg, tgt, phase, noise, cr_on=None, refs=None):
     """One training step's loss and gradients of `params` (one image,
     numpy) on device d: the phase's quantizer and loss, the given noise
-    draws; `cr_on(d)` gives the common-randomness grids on d."""
+    draws; `cr_on(d)` gives the common-randomness grids on d; `refs`: a
+    P/B frame's dense [1, 3, H, W] references (numpy)."""
     import numpy as np
     import torch
 
@@ -264,7 +289,8 @@ def step_on(d, params, fcfg, tgt, phase, noise, cr_on=None):
                    phase.precondition_frequency_model, cr=None if cr_on is None else cr_on(d))
     args = (tree_leaves(like), {k: [x.to(d) for x in v] for k, v in noise.items()},
             phase.softround_temperature[0], _target_from_frame(tgt, d),
-            torch.full((1,), phase.lmbda, device=d))
+            torch.full((1,), phase.lmbda, device=d),
+            None if refs is None else [torch.as_tensor(r, device=d) for r in refs])
     with torch.no_grad():
         loss = float(fns.loss(*args).loss[0])
     return loss, [None if g is None else g.cpu().double() for g in fns.grads(*args)]
@@ -726,6 +752,469 @@ def wasserstein_phase(dev, src: Path, work: Path) -> dict:
             "window_steps": n_steps, "step_peak_bytes": peak, "cpu_step_s": cpu_s,
             "grad_l2": l2, "grad_max": mx}
 
+def synthetic_clip(frame, path: Path, n_frames: int = 3) -> None:
+    """A yuv420 8-bit clip from one RGB frame: frame t is the image
+    resampled at a pan of t * (3.25, -1.75) px with a 1 % zoom per frame
+    about the centre (bilinear, edges replicated), converted by the port's
+    rgb2yuv and convert_444_to_420."""
+    import numpy as np
+
+    from coolchic_tpu_torch.io.framedata import FrameData
+    from coolchic_tpu_torch.io.yuv import convert_444_to_420, rgb2yuv, write_yuv
+
+    img = np.asarray(frame.data, np.float64)[0]
+    _, h, w = img.shape
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    for t in range(n_frames):
+        zoom, dx, dy = 1.01 ** t, 3.25 * t, -1.75 * t
+        sy = np.clip(cy + (yy - cy) / zoom + dy, 0, h - 1)
+        sx = np.clip(cx + (xx - cx) / zoom + dx, 0, w - 1)
+        y0, x0 = np.floor(sy).astype(int), np.floor(sx).astype(int)
+        y1, x1 = np.minimum(y0 + 1, h - 1), np.minimum(x0 + 1, w - 1)
+        fy, fx = sy - y0, sx - x0
+        out = (img[:, y0, x0] * (1 - fy) * (1 - fx) + img[:, y0, x1] * (1 - fy) * fx
+               + img[:, y1, x0] * fy * (1 - fx) + img[:, y1, x1] * fy * fx)
+        yuv = np.clip(rgb2yuv(out[None].astype(np.float32)), 0.0, 1.0)
+        write_yuv(FrameData(8, "yuv420", convert_444_to_420(yuv)), str(path), append=t > 0)
+
+
+def file_items(path: Path) -> list:
+    """Every cool-chic of a multi-frame `tpu`-profile file: [(display
+    index, frame type, cc name, (header, nn bytes, latent bytes))]."""
+    from coolchic_tpu_torch.bitstream.headers import (
+        TPU_PROFILE_MAGIC,
+        CoolChicHeader,
+        FrameHeader,
+        VideoHeader,
+    )
+
+    rest = path.read_bytes()
+    check(rest.startswith(TPU_PROFILE_MAGIC), f"{path.name} is not tpu-profile")
+    vh, rest = VideoHeader.read(rest[len(TPU_PROFILE_MAGIC):])
+    out = []
+    for _ in range(vh.n_frames):
+        fh, rest = FrameHeader.read(rest)
+        for name in ["residue"] + (["motion"] if fh.frame_type != "I" else []):
+            ch, rest = CoolChicHeader.read(rest)
+            bnn, rest = rest[:ch.nn_n_bytes], rest[ch.nn_n_bytes:]
+            blat, rest = rest[:ch.n_bytes_latent], rest[ch.n_bytes_latent:]
+            out.append((fh.display_index, fh.frame_type, name, (ch, bnn, blat)))
+    return out
+
+
+def planes_mse(dec, ref) -> float:
+    import numpy as np
+
+    n = {k: v.size for k, v in ref.data.items()}
+    return sum(float(np.sum(np.square(np.asarray(dec.data[k], np.float64)
+                                      - np.asarray(ref.data[k], np.float64)))) for k in n) \
+        / sum(n.values())
+
+
+def motion_grid_on_kernel(dev, cc, cfg, q_shift, expgol) -> dict:
+    """The motion cool-chic's finest grid coded as 128 streams (the `tpu`
+    profile's layout of a grid of 65 536 px or more; at 512x768 the motion
+    grids are smaller and decode on the host), then decoded by the CUDA
+    kernel, by its plain version and by the host C++: the kernel on the
+    motion configuration (latents from level 2, no hyperlatents, IFCE 2-2).
+    These launches are not the main path's."""
+    import numpy as np
+
+    from coolchic_tpu_torch.bitstream import codec
+    from coolchic_tpu_torch.bitstream import rangecoder as rc
+    from coolchic_tpu_torch.bitstream.encode import _int_arm_params
+    from coolchic_tpu_torch.bitstream.headers import CoolChicHeader
+    from coolchic_tpu_torch.core.constants import non_zero_pixel_ctx_index
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+
+    header = CoolChicHeader.from_config(cfg, nn_q_step_shift=dict(q_shift),
+                                        nn_expgol_cnt=dict(expgol),
+                                        nn_n_bytes=0, nn_n_bit_pad=0, n_bytes_latent=0)
+    nn_int = _int_arm_params(cc, cfg, q_shift)
+    arm8 = codec._main_arm_params(nn_int, header, cfg, 1)
+    grids = [np.clip(np.round(np.asarray(lat) * cfg.encoder_gain), -64, 63).astype(np.int64)
+             for lat in cc["latents"]]
+    h, w = cfg.size_per_latent[0]
+    ifce = codec._ifce_context_for_grid(nn_int, cfg, header, 0, grids[1:], h, w, model=1)
+    ctx_idx = non_zero_pixel_ctx_index(cfg.spatial_context_arm)
+    encoders = [rc.RangeEncoder() for _ in range(wfd.LANES)]
+    rc.code_grid_streams(encoders, True, h, w, cfg.spatial_context_arm, ifce, arm8, ctx_idx,
+                         data=np.ascontiguousarray(grids[0]), model=1)
+    words = [np.frombuffer(e.get_bytes(), np.uint32).copy() for e in encoders]
+    host = rc.code_grid_streams([rc.RangeDecoder(ws.tobytes()) for ws in words], False, h, w,
+                                cfg.spatial_context_arm, ifce, arm8, ctx_idx, model=1)
+    job = [{"words": words, "arm8": arm8, "ifce": ifce}]
+    n_ifce = cfg.output_feature_ifce if cfg.flag_ifce else 0
+    before = wfd.KERNEL.launches
+    got = wfd.decode_grids(job, h, w, ctx_idx, n_ifce, device=dev)[0]
+    launched = wfd.KERNEL.launches - before
+    plain = wfd.decode_grids(job, h, w, ctx_idx, n_ifce, device=dev, plain=True)[0]
+    check(launched > 0, "the motion grid did not reach the kernel")
+    check(np.array_equal(host, grids[0]), "motion grid: host C++ != the coded grid")
+    err = int(np.abs(np.asarray(got) - np.asarray(plain)).max())
+    check(err == 0, f"motion grid: kernel != plain (max {err})")
+    check(np.array_equal(got, host), "motion grid: kernel != host C++")
+    return {"shape": [h, w], "max_abs_err": err, "launches": launched}
+
+
+def step_ms_inter(dev, params, fcfg, tgt, phase, refs, n: int = 20) -> float:
+    """Median device time of n training steps (after one) of one P/B frame
+    at n = 1, CUDA events."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.models.params import tree_from_numpy
+    from coolchic_tpu_torch.train.encode import _target_from_frame
+    from coolchic_tpu_torch.train.params import tree_leaves, tree_map
+    from coolchic_tpu_torch.train.train import PhaseFns, TorchNoise, init_opt_state
+
+    like = tree_from_numpy(tree_map(lambda x: np.asarray(x)[None], params), dev)
+    fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
+                   phase.dist_weight, tuple(phase.betas_model), tuple(phase.betas_latent),
+                   phase.precondition_frequency_model)
+    leaves = tree_leaves(like)
+    states = init_opt_state(leaves, fns.groups, fns.hp_weight, fns.hp_latent)
+    draw = TorchNoise(torch.Generator(device=dev).manual_seed(1))
+    level = torch.full((1,), phase.noise_parameter[0], device=dev)
+    target, lmbda = _target_from_frame(tgt, dev), torch.full((1,), 1e-3, device=dev)
+    lr, temp = torch.tensor(phase.lr, device=dev), phase.softround_temperature[0]
+    refs_d = [torch.as_tensor(r, device=dev) for r in refs]
+    events = []
+    for s in range(n + 1):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        leaves, states = fns.step(leaves, states, draw("step", fcfg, 1, "gaussian", level, True),
+                                  temp, lr, target, lmbda, refresh=(s + 1) % fns.pf == 0,
+                                  refs=refs_d)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events[1:])
+
+
+def video_phase(dev, frame, work: Path) -> dict:
+    """Phase 8: the I, P and B frames of a synthetic 512x768 clip through
+    the CLI on the card, the file decoded, and the card held against the
+    CPU on the warp, a B training step and the P/B RDOQ scorers."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch import cc_encode
+    from coolchic_tpu_torch.bitstream import codec
+    from coolchic_tpu_torch.bitstream.decode import _decode_items_batched, decode_frame, \
+        decode_video
+    from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks
+    from coolchic_tpu_torch.bitstream.encode import encode_frame
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.io.yuv import convert_420_to_444
+    from coolchic_tpu_torch.models.warp import warp_fn
+    from coolchic_tpu_torch.nnquant import rdoq as R
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.train import TorchNoise
+    from coolchic_tpu_torch.train.video import _rdoq_frame_ctx
+    from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder
+    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
+
+    work.mkdir()
+    h, w = frame.img_size
+    clip = work / f"clip_{w}x{h}_60p_yuv420_8b.yuv"
+    synthetic_clip(frame, clip)
+
+    def saved_name(disp: int) -> str:   # train/video.py:_decoded_name
+        return f"{disp:04d}-decoded_{w}x{h}_yuv420_8b.yuv"
+    originals = [load_frame_data_from_file(str(clip), t) for t in range(3)]
+    out, wd = work / "out.cool", work / "w"
+    cs = CodingStructure(n_frames=3, intra_pos=[0], p_pos=[2])
+    # The CLI's decode-back holds the real rate within 20 % of the
+    # encoder's estimate, which leaves out the `tpu` profile's per-stream
+    # overhead (~2 KB a frame here: 256 streams on levels 0 and 1 of the
+    # residue). The clip's B frame is well predicted: at lambda 1e-3 it
+    # costs ~4 KB and fails that bar (ROADMAP.md Queue 3), at 5e-5 it does not.
+    lmbda = 5e-5
+    base = ["-i", str(clip), "-o", str(out), "--workdir", str(wd), "--n_frames", "3",
+            "--intra_pos", "0", "--p_pos", "-1", "--recipe", "debug", "--profile", "tpu",
+            "--lmbda", str(lmbda), "--device", "cuda"]
+
+    # ------------------------------------------------ the encodes, as a user runs them
+    frames = {}
+    for coding_idx in range(3):
+        f = cs.get_frame_from_coding_order(coding_idx)
+        before = out.stat().st_size if out.exists() else 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        wfd.KERNEL.launches = 0
+        t0 = time.time()
+        rc = cc_encode.main([*base, "--coding_idx", str(coding_idx)]
+                            + (["--no_rdoq"] if f.frame_type == "I" else []))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        check(rc == 0, f"cc_encode {f.frame_type}{f.display_order} exited {rc}")
+        if f.frame_type == "I":
+            shutil.copy(out, work / "i_only.cool")
+        stem = f"{f.display_order:04d}"
+        stages = json.loads((wd / f"{stem}-encoder_stages.json").read_text())
+        head, row = (wd / f"{stem}-logs_detailed.tsv").read_text().splitlines()
+        det = dict(zip(head.split("\t"), row.split("\t")))
+        n_bytes = out.stat().st_size - before
+        rec = {"display_index": f.display_order, "wall_s": wall,
+               "launches": wfd.KERNEL.launches, "stages_s": stages["stages_s"],
+               "peak_bytes": torch.cuda.max_memory_allocated(dev), "bytes": n_bytes,
+               "bpp": 8 * n_bytes / originals[0].n_pixels, "psnr_db": float(det["psnr_db"])}
+        for k in ("alpha_mean", "beta_mean", "pred_psnr_db", "dummy_pred_psnr_db"):
+            rec[k] = float(det[k])
+        frames[f.frame_type] = rec
+        print(f"[8] cc_encode {f.frame_type}{f.display_order} 512x768 "
+              f"{'intra hop --no_rdoq' if f.frame_type == 'I' else 'residue hop, motion mop'}: "
+              f"exit 0 in {wall:.1f} s, {n_bytes} bytes = {rec['bpp']:.4f} bpp, psnr "
+              f"{rec['psnr_db']:.3f} dB, wavefront_decode launches {rec['launches']} "
+              f"(decode-back), peak {rec['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        print(f"[8] {f.frame_type} stages (s): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in stages["stages_s"].items()), flush=True)
+        if f.frame_type != "I":
+            print(f"[8] {f.frame_type} alpha {rec['alpha_mean']:.3f} beta "
+                  f"{rec['beta_mean']:.3f} prediction {rec['pred_psnr_db']:.2f} dB, mean of "
+                  f"the references {rec['dummy_pred_psnr_db']:.2f} dB", flush=True)
+    gflows = {}
+    for ft in ("P", "B"):
+        params, fcfg, _ = load_frame_encoder(
+            str(wd / f"{frames[ft]['display_index']:04d}-frame_encoder.npz"))
+        gflows[ft] = [np.asarray(params[f"global_flow_{i + 1}"]).tolist()
+                      for i in range(fcfg.n_refs)]
+    print(f"[8] global translations found (dx, dy): {gflows}", flush=True)
+
+    # --------------------------------------------- decode_video of the whole file
+    routes = []
+    wfd.KERNEL.launches = 0
+    t0 = time.time()
+    decoded = decode_video(str(out), device=dev, routes=routes)
+    torch.cuda.synchronize()
+    dec_s, dec_launches = time.time() - t0, wfd.KERNEL.launches
+    check(sorted(decoded) == ["0", "1", "2"], f"decoded frames {sorted(decoded)}")
+    check(dec_launches > 0, "decode_video launched no wavefront_decode kernel")
+    for r in routes:
+        print(f"[8] route: frame {r['display_index']} {r['cc']}: {r['path']}"
+              + (f" ({r['reason']})" if r["reason"] else ""), flush=True)
+    print(f"[8] decode_video I+P+B: {dec_s:.2f} s, wavefront_decode launches {dec_launches}",
+          flush=True)
+
+    # every grid of both cool-chics: device path == host C++
+    grid_levels = {}
+    for disp, ft, name, item in file_items(out):
+        outputs, recs = _decode_items_batched([item], dev)
+        _, host = codec.decode_coolchic_tpu_host(*item, device=dev)
+        cfg = item[0].to_config()
+        for lv in range(cfg.n_latent_grids):
+            check(np.array_equal(outputs[0][1][lv], host[lv]),
+                  f"frame {disp} {name} level {lv}: device path != host C++")
+        blocks = _parse_level_blocks(cfg, item[2])
+        k_levels = [lv for lv in range(cfg.n_latent_grids) if blocks[lv]["n_streams"] == 128]
+        grid_levels[f"{ft}{disp} {name}"] = {"kernel_levels": k_levels,
+                                             "grids": list(cfg.size_per_latent)}
+        print(f"[8] {ft}{disp} {name}: {cfg.n_latent_grids} grids {list(cfg.size_per_latent)}"
+              f" == host C++; 128-stream (kernel) levels {k_levels}; route "
+              f"{recs[0]['path']}", flush=True)
+
+    # the kernel on the motion configuration: each motion cool-chic's
+    # finest grid as 128 streams, kernel == plain == host C++
+    motion_grids = {}
+    for ft in ("P", "B"):
+        params, fcfg, side = load_frame_encoder(
+            str(wd / f"{frames[ft]['display_index']:04d}-frame_encoder.npz"))
+        motion_grids[ft] = motion_grid_on_kernel(dev, params["motion"], fcfg.cc_cfgs["motion"],
+                                                 *side["motion"])
+        print(f"[8] {ft} motion grid {motion_grids[ft]['shape']} as 128 streams: kernel == "
+              f"plain == host C++ ({motion_grids[ft]['launches']} launch, not on the main "
+              f"path)", flush=True)
+
+    # the decoded frames against the encoder's own saved frames: luma within
+    # one code value, on under 0.1 % of the samples. The decoder rounds its
+    # 444 output to 8 bits before the 420 pooling and the encoder pools
+    # first (the JAX package's and the reference's pipelines, ROADMAP.md
+    # Queue 3), so a chroma sample is one code apart on a share of the
+    # samples, and the P/B frames predict from references that differ so:
+    # chroma within two codes, more than one code apart on under 1 % of the
+    # samples, and the decoder's PSNR within 0.05 dB of the saved frame's
+    code_diff = {}
+    for ft in ("I", "P", "B"):
+        disp = frames[ft]["display_index"]
+        saved = load_frame_data_from_file(str(wd / saved_name(disp)))
+        rec = {}
+        for k, v in saved.data.items():
+            d = np.abs(np.round(decoded[str(disp)].data[k] * 255) - np.round(v * 255))
+            rec[k] = {"max_codes": float(d.max()), "share_off": float((d > 0).mean()),
+                      "share_over_1": float((d > 1).mean())}
+        psnr_dec = -10 * np.log10(planes_mse(decoded[str(disp)], originals[disp]))
+        psnr_saved = -10 * np.log10(planes_mse(saved, originals[disp]))
+        code_diff[ft] = {**rec, "psnr_dec": psnr_dec, "psnr_saved": psnr_saved}
+        print(f"[8] {ft}{disp}: decoder psnr {psnr_dec:.3f} dB, the encoder's saved frame "
+              f"{psnr_saved:.3f} dB; against it per plane (max codes, share of samples off, "
+              f"share more than one code off): " + ", ".join(
+                  f"{k} {r['max_codes']:.0f} {r['share_off']:.2e} {r['share_over_1']:.2e}"
+                  for k, r in rec.items()), flush=True)
+        check(rec["y"]["max_codes"] <= 1 and rec["y"]["share_off"] < 1e-3,
+              f"{ft} luma decode vs the encoder's frame: {rec['y']}")
+        check(all(rec[k]["max_codes"] <= 2 and rec[k]["share_over_1"] < 1e-2
+                  for k in ("u", "v")), f"{ft} chroma decode vs the encoder's frame: {rec}")
+        check(abs(psnr_dec - psnr_saved) <= 0.05,
+              f"{ft} decoder psnr {psnr_dec:.3f} vs the saved frame's {psnr_saved:.3f} dB")
+
+    # --------------------------------------------- warp_fn card against CPU
+    ref0 = torch.as_tensor(convert_420_to_444(decoded["0"].data), dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    coarse = torch.as_tensor(rng.normal(0, 4, (1, 2, 16, 24)), dtype=torch.float32)
+    flow = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear",
+                                           align_corners=False)
+    warp_err = {}
+    for training in (False, True):
+        a = warp_fn(ref0.to(dev), flow.to(dev), 8, training).cpu()
+        b = warp_fn(ref0, flow, 8, training)
+        warp_err["train" if training else "eval"] = float((a - b).abs().max())
+    check(max(warp_err.values()) <= 1e-5, f"warp_fn card vs cpu {warp_err}")
+    x_d, f_d = ref0.to(dev), flow.to(dev)
+    fwd_ms = cuda_ms(lambda: warp_fn(x_d, f_d, 8, True), n=20)
+    f_g = f_d.clone().requires_grad_()
+
+    def fwd_bwd():
+        warp_fn(x_d, f_g, 8, True).sum().backward()
+    fb_ms = cuda_ms(fwd_bwd, n=20)
+    print(f"[8] warp_fn 512x768 filter 8, card vs cpu max |diff| eval {warp_err['eval']:.2e}, "
+          f"training {warp_err['train']:.2e}; {fwd_ms:.3f} ms forward, {fb_ms:.3f} ms forward "
+          f"+ backward (CUDA events, median of 20)", flush=True)
+
+    # --------------------------------------------- one B step card vs CPU, ms per step
+    phase = PresetDebug(lmbda=lmbda, start_lr=1e-2, itr_main_training=1).training_phases[0]
+    steps = {}
+    for ft in ("P", "B"):
+        disp = frames[ft]["display_index"]
+        params, fcfg, _ = load_frame_encoder(str(wd / f"{disp:04d}-frame_encoder.npz"))
+        refs = [convert_420_to_444(decoded[str(i)].data).astype(np.float32)
+                for i in fcfg.index_references]
+        steps[ft] = {"step_ms": step_ms_inter(dev, params, fcfg, originals[disp], phase, refs)}
+        if ft == "B":
+            noise = TorchNoise(torch.Generator().manual_seed(0))(
+                "step", fcfg, 1, phase.quantizer_noise_type,
+                torch.tensor([phase.noise_parameter[0]]), True)
+
+            def one_step(d):
+                return step_on(d, params, fcfg, originals[disp], phase, noise, refs=refs)
+            t0 = time.time()
+            l_cpu, g_cpu = one_step(torch.device("cpu"))
+            cpu_s = time.time() - t0
+            l_dev, g_dev = one_step(dev)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+            try:
+                _, g_tf32 = one_step(dev)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.set_float32_matmul_precision("highest")
+            (l2, l2_path), mx = grad_errors(params, g_dev, g_cpu)
+            (l2_tf32, l2_tf32_path), _ = grad_errors(params, g_tf32, g_cpu)
+            print(f"[8] one B step card vs cpu: loss {l_dev:.8f} vs {l_cpu:.8f}; worst leaf "
+                  f"|diff|_2/|cpu|_2 {l2:.2e} ({l2_path}), max {mx:.2e}; TF32 control "
+                  f"{l2_tf32:.2e} ({l2_tf32_path}); tolerance {STEP_GRAD_TOL:.0e}; the CPU "
+                  f"step took {cpu_s:.1f} s", flush=True)
+            check(abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu), f"B step loss card {l_dev} cpu {l_cpu}")
+            check(l2 <= STEP_GRAD_TOL, f"B step gradient {l2_path}: card vs cpu {l2:.2e}")
+            check(l2_tf32 > STEP_GRAD_TOL, f"the TF32 control passes ({l2_tf32:.2e})")
+            steps[ft].update(grad_l2=l2, grad_max=mx, tf32_l2=l2_tf32, cpu_step_s=cpu_s)
+        print(f"[8] {ft} training step (n = 1, 512x768, residue hop + motion mop, filter 8): "
+              f"{steps[ft]['step_ms']:.2f} ms median of 20 (CUDA events)", flush=True)
+
+    # --------------------------------------------- RDOQ probes card vs CPU
+    cpu = torch.device("cpu")
+    probes = {}
+    for ft in ("P", "B"):
+        disp = frames[ft]["display_index"]
+        params, fcfg, side = load_frame_encoder(str(wd / f"{disp:04d}-frame_encoder.npz"))
+        refs = [convert_420_to_444(decoded[str(i)].data).astype(np.float32)
+                for i in fcfg.index_references]
+        target = convert_420_to_444(originals[disp].data)
+        for cc in ("residue", "motion"):
+            cfg = fcfg.cc_cfgs[cc]
+            q_shift, expgol = side[cc]
+            setups = [R.module_scorers(
+                params[cc], cfg, "synthesis", q_shift, expgol, lmbda, target, "yuv420", 8, d,
+                R._probe_budget_bytes(d), frame_type=ft, frame_ctx=_rdoq_frame_ctx(
+                    params, fcfg, cc, [torch.as_tensor(r, device=d) for r in refs], None, d))
+                for d in (dev, cpu)]
+            shifts = setups[0][0]
+            flat = R._flat(params[cc], cfg, "synthesis", "weight")
+            fb = R._flat(params[cc], cfg, "synthesis", "bias")
+            idxs = np.random.default_rng(0).permutation(flat.size)[:2 if cc == "residue" else 1]
+            q = float(2.0 ** q_shift[("synthesis", "weight")])
+            vals = flat[idxs][:, None] + np.asarray(shifts, np.float32)[None, :] * np.float32(q)
+            res, secs = [], []
+            for d, setup in zip((dev, cpu), setups):
+                args = [torch.tensor(a, device=d) for a in (flat, fb, idxs, vals)]
+                if d.type == "cuda":
+                    setup[3]["weight"](*args)
+                    torch.cuda.synchronize()
+                t0 = time.time()
+                res.append(setup[3]["weight"](*args).cpu().numpy())
+                secs.append(time.time() - t0)
+            cmp = compare_lanes(res[0], res[1], int(1.5 * frame.n_pixels))
+            kind = "row-tile" if cc == "residue" else "full-resolution"
+            probes[f"{ft} {cc}"] = {"scorer": kind, "lanes": int(vals.size), "card_s": secs[0],
+                                    "cpu_s": secs[1], **cmp}
+            print(f"[8] {ft} {cc} synthesis ({kind} scorer), one probe of {vals.size} lanes: "
+                  f"card {secs[0]:.3f} s, cpu {secs[1]:.2f} s; max rel diff "
+                  f"{cmp['max_rel']:.2e}, {cmp['lanes_off']} lanes above 1e-5", flush=True)
+
+    # --------------------------------------------- RDOQ of a --no_rdoq P frame
+    wp = work / "p_no_rdoq"
+    wp.mkdir()
+    shutil.copy(wd / saved_name(0), wp)
+    shutil.copy(work / "i_only.cool", wp / "out.cool")
+    rc = cc_encode.main(["-i", str(clip), "-o", str(wp / "out.cool"), "--workdir", str(wp),
+                         "--n_frames", "3", "--intra_pos", "0", "--p_pos", "-1", "--recipe",
+                         "debug", "--profile", "tpu", "--lmbda", str(lmbda), "--device", "cuda",
+                         "--coding_idx", "1", "--no_rdoq"])
+    check(rc == 0, f"cc_encode P --no_rdoq exited {rc}")
+    params, fcfg, side = load_frame_encoder(str(wp / "0002-frame_encoder.npz"))
+    ref_i = load_frame_data_from_file(str(wd / saved_name(0)))
+
+    def objective(p, sd):
+        payload = encode_frame(p, fcfg, cs, sd, is_first_frame=False, profile="tpu")
+        dec, _ = decode_frame(payload, [ref_i], profile="tpu", device=dev)
+        mse = planes_mse(dec, originals[2])
+        return {"objective": mse + lmbda * 8 * len(payload) / frame.n_pixels, "mse": mse,
+                "bytes": len(payload)}
+
+    before = objective(params, side)
+    refs_d = [torch.as_tensor(convert_420_to_444(ref_i.data).astype(np.float32), device=dev)]
+    side_after, log = {}, []
+    t0 = time.time()
+    for cc in ("residue", "motion"):
+        q_shift, expgol = side[cc]
+        expgol = dict(expgol)
+        fctx = _rdoq_frame_ctx(params, fcfg, cc, refs_d, None, dev)
+        params = {**params, cc: R.rdoq_coolchic(
+            params[cc], fcfg.cc_cfgs[cc], q_shift, expgol, lmbda,
+            target=convert_420_to_444(originals[2].data), frame_type="P",
+            frame_data_type="yuv420", bitdepth=8, frame_ctx=fctx, device=dev, log=log)}
+        side_after[cc] = (q_shift, expgol)
+    rdoq_s = time.time() - t0
+    after = objective(params, side_after)
+    print(f"[8] RDOQ of the --no_rdoq P frame: {rdoq_s:.2f} s, {sum(r['probes'] for r in log)} "
+          f"probes; objective on the bitstream {before['objective']:.6e} -> "
+          f"{after['objective']:.6e} (mse {before['mse']:.4e} -> {after['mse']:.4e}, "
+          f"{before['bytes']} -> {after['bytes']} bytes)", flush=True)
+    check(after["objective"] <= before["objective"],
+          f"RDOQ worsened the P objective: {before} -> {after}")
+
+    return {"frames": frames, "global_flows": gflows, "decode_video_s": dec_s,
+            "decode_launches": dec_launches, "routes": [
+                {k: v for k, v in r.items() if k != "items"} for r in routes],
+            "grid_levels": grid_levels, "motion_grids": motion_grids, "code_diff": code_diff,
+            "warp_max_err": warp_err,
+            "warp_ms": {"forward": fwd_ms, "forward_backward": fb_ms}, "steps": steps,
+            "probes": probes, "rdoq_p": {"seconds": rdoq_s, "before": before, "after": after,
+                                         "sweeps": log}}
+
 
 def main() -> int:
     import torch
@@ -1031,6 +1520,7 @@ def main() -> int:
         enc = encode_phase(dev, frames[0], wd / "p5")
         rdoq = rdoq_phase(dev, wd / "p5", wd / "p6")
         wass = wasserstein_phase(dev, wd / "p5" / "target.ppm", wd / "p7")
+        video = video_phase(dev, frames[0], wd / "p8")
 
     kernels = [{
         "name": "wavefront_decode",
@@ -1040,8 +1530,12 @@ def main() -> int:
         "launches": rdoq["cli"]["launches"],
         "launches_by_path": {"decode_images": launches, "cc_encode --no_rdoq": enc["launches"],
                              "cc_encode": rdoq["cli"]["launches"],
-                             "cc_encode --tune wasserstein": wass["cli"]["launches"]},
-        "max_abs_err": max_abs_err,
+                             "cc_encode --tune wasserstein": wass["cli"]["launches"],
+                             **{f"cc_encode {ft} frame (video)": r["launches"]
+                                for ft, r in video["frames"].items()},
+                             "decode_video I+P+B": video["decode_launches"]},
+        "max_abs_err": max(max_abs_err, *(g["max_abs_err"]
+                                          for g in video["motion_grids"].values())),
         "ms": kern1_ms,
         "plain_ms": plain1_ms,
         "bound_ms": bound1,
@@ -1062,6 +1556,7 @@ def main() -> int:
     print(json.dumps({"encode_512x768_hop": enc, "card": card}), flush=True)
     print(json.dumps({"rdoq_512x768_hop": rdoq, "card": card}), flush=True)
     print(json.dumps({"wasserstein_512x768_hop": wass, "card": card}), flush=True)
+    print(json.dumps({"video_512x768": video, "card": card}), flush=True)
     tmp.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())

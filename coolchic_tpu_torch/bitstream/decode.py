@@ -1,7 +1,12 @@
-"""Frame / video level bitstream decoding (intra frames).
+"""Frame / video level bitstream decoding (I, P and B frames).
+
+A P/B frame decodes its residue and motion cool-chics (in the `tpu`
+profile both go through the batched device decode), shifts its decoded
+references by the header's integer global flows, warps them on the device
+by the decoded flows and blends: x = alpha * pred + residue.
 
 Reference parity: coolchic/bitstream/decode.py and
-coolchic_tpu/bitstream/decode.py. P and B frames are not ported yet.
+coolchic_tpu/bitstream/decode.py.
 """
 
 from __future__ import annotations
@@ -20,25 +25,65 @@ from coolchic_tpu_torch.bitstream.headers import (
 )
 from coolchic_tpu_torch.core.device import resolve_device
 from coolchic_tpu_torch.io.framedata import FrameData
-from coolchic_tpu_torch.io.yuv import convert_444_to_420, yuv_dict_clamp
+from coolchic_tpu_torch.io.yuv import convert_420_to_444, convert_444_to_420, yuv_dict_clamp
+from coolchic_tpu_torch.models.warp import apply_global_translation, warp_fn
 from coolchic_tpu_torch.utils.codingstructure import CodingStructure
 
 
-def decode_frame(bitstream: bytes, profile: str = "ref",
-                 device: str | torch.device = "cuda") -> tuple[FrameData, bytes]:
-    """Decode one intra frame; returns it and the rest of the bitstream."""
+def decode_frame(bitstream: bytes, reference_frames: Optional[list[FrameData]] = None,
+                 profile: str = "ref", device: str | torch.device = "cuda",
+                 routes: Optional[list] = None) -> tuple[FrameData, bytes]:
+    """Decode one frame (a P/B frame from its decoded `reference_frames`);
+    returns it and the rest of the bitstream. `routes`, when given, gains
+    the `tpu`-profile route record of each cool-chic's group (see
+    _decode_items_batched) with its "cc" name and "display_index"."""
+    device = resolve_device(device)
     frame_header, bitstream = FrameHeader.read(bitstream)
-    if frame_header.frame_type != "I":
-        raise NotImplementedError(
-            f"{frame_header.frame_type} frames are not decoded by the port yet")
-    cc_header, bitstream = CoolChicHeader.read(bitstream)
-    bytes_nn = bitstream[:cc_header.nn_n_bytes]
-    bitstream = bitstream[cc_header.nn_n_bytes:]
-    bytes_latent = bitstream[:cc_header.n_bytes_latent]
-    bitstream = bitstream[cc_header.n_bytes_latent:]
-    raw_out, _ = decode_coolchic(cc_header, bytes_nn, bytes_latent, profile=profile,
-                                 device=device)
-    return _finish_frame(raw_out, frame_header.bitdepth,
+    frame_type = frame_header.frame_type
+    names = ["residue"] + (["motion"] if frame_type in ("P", "B") else [])
+    items = []
+    for _ in names:
+        cc_header, bitstream = CoolChicHeader.read(bitstream)
+        bytes_nn = bitstream[:cc_header.nn_n_bytes]
+        bitstream = bitstream[cc_header.nn_n_bytes:]
+        bytes_latent = bitstream[:cc_header.n_bytes_latent]
+        bitstream = bitstream[cc_header.n_bytes_latent:]
+        items.append((cc_header, bytes_nn, bytes_latent))
+    if profile == "tpu":
+        outputs, recs = _decode_items_batched(items, device)
+        for r in recs:
+            if routes is not None:
+                routes.append({**r, "cc": [names[i] for i in r["items"]],
+                               "display_index": frame_header.display_index})
+    else:
+        outputs = [decode_coolchic(*item, profile=profile, device=device) for item in items]
+    cc_out = {name: raw for name, (raw, _) in zip(names, outputs)}
+
+    if frame_type == "I":
+        decoded = cc_out["residue"]
+    else:
+        if frame_header.frame_data_type == "yuv420":
+            raw_refs = [convert_420_to_444(r.data) for r in reference_frames]
+        else:
+            raw_refs = [np.asarray(r.data) for r in reference_frames]
+        flows = np.asarray(frame_header.global_flow, dtype=np.float32)
+        shifted = apply_global_translation(
+            raw_refs, [flows[2 * i:2 * i + 2] for i in range(frame_header.n_refs)])
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        res, mot = dev(cc_out["residue"]), dev(cc_out["motion"])
+        fsize = frame_header.warp_filter_size
+        with torch.no_grad():
+            alpha = torch.clamp(res[:, 3:4] + 0.5, 0.0, 1.0)
+            pred = warp_fn(dev(shifted[0]), mot[:, 0:2], fsize)
+            if frame_type == "B":
+                beta = torch.clamp(res[:, 4:5] + 0.5, 0.0, 1.0)
+                pred = beta * pred + (1 - beta) * warp_fn(dev(shifted[1]), mot[:, 2:4], fsize)
+            decoded = (alpha * pred + res[:, :3]).cpu().numpy()
+
+    return _finish_frame(decoded, frame_header.bitdepth,
                          frame_header.frame_data_type), bitstream
 
 
@@ -137,10 +182,12 @@ def decode_images(bitstream_paths: list[str],
 
 
 def decode_video(bitstream_path: str, decoded_path: Optional[str] = None,
-                 max_decoding_order: int = -1, device: str | torch.device = "cuda"
-                 ) -> dict[str, FrameData]:
-    """Decode a .cool file of intra frames (either profile, sniffed from the
-    container magic). Returns {display index: frame}."""
+                 max_decoding_order: int = -1, device: str | torch.device = "cuda",
+                 routes: Optional[list] = None) -> dict[str, FrameData]:
+    """Decode a .cool file of I, P and B frames in coding order (either
+    profile, sniffed from the container magic); `decoded_path` gets every
+    frame in display order (a multi-frame .yuv). Returns {display index:
+    frame}; `routes` as decode_frame's."""
     device = resolve_device(device)
     with open(bitstream_path, "rb") as f:
         bitstream = f.read()
@@ -162,7 +209,10 @@ def decode_video(bitstream_path: str, decoded_path: Optional[str] = None,
 
     for coding_idx in range(max_decoding_order + 1):
         frame = coding_structure.get_frame_from_coding_order(coding_idx)
-        frame.data, bitstream = decode_frame(bitstream, profile=profile, device=device)
+        refs = [coding_structure.get_frame_from_display_order(i).data
+                for i in frame.index_references]
+        frame.data, bitstream = decode_frame(bitstream, refs, profile=profile,
+                                             device=device, routes=routes)
 
     all_frames: dict[str, FrameData] = {}
     for display_idx in range(coding_structure.get_max_display_order() + 1):

@@ -1,4 +1,4 @@
-"""Frame / video level bitstream writing (intra frames).
+"""Frame / video level bitstream writing (I, P and B frames).
 
 Parameters arrive quantized (nnquant/quantize.py) as numpy arrays in the
 model layout. The latents are range-coded by the host C++ coder in either
@@ -71,15 +71,14 @@ def encode_coolchic(cc_params: dict, cfg: CoolChicConfig, q_shift: dict, expgol:
 def encode_frame(frame_params: dict, fcfg: FrameConfig, coding_structure: CodingStructure,
                  nn_side_info: dict, is_first_frame: bool = True,
                  profile: str = "ref") -> bytes:
-    """Serialize one intra frame.
+    """Serialize one frame: [magic, video header if first] frame header
+    (with a P/B frame's rounded global flows and warp filter size), then
+    the residue cool-chic and, for P/B, the motion cool-chic.
 
     nn_side_info: {cc_name: (q_shift dict, expgol dict)} from quantize_coolchic.
     profile: "ref" = reference bit-compatible; "tpu" = parallel-stream latent
     payloads inside a CCTP container (docs/tpu_profile.md).
     """
-    if fcfg.frame_type != "I":
-        raise NotImplementedError(
-            f"{fcfg.frame_type} frames are not encoded by the port yet (I only)")
     out = b""
     if is_first_frame and profile == "tpu":
         out += TPU_PROFILE_MAGIC
@@ -90,17 +89,22 @@ def encode_frame(frame_params: dict, fcfg: FrameConfig, coding_structure: Coding
             p_pos=tuple(coding_structure.p_pos),
         ).to_bytes()
 
+    gflow = []
+    for i in range({"I": 0, "P": 1, "B": 2}[fcfg.frame_type]):
+        gflow += [int(v) for v in np.asarray(frame_params[f"global_flow_{i + 1}"]).round()]
+
     out += FrameHeader(
         display_index=fcfg.frame_display_index,
         frame_type=fcfg.frame_type,
         frame_data_type=fcfg.frame_data_type,
         bitdepth=fcfg.bitdepth,
         index_references=tuple(fcfg.index_references),
-        global_flow=(),
-        warp_filter_size=None,
+        global_flow=tuple(gflow),
+        warp_filter_size=fcfg.warp_filter_size if fcfg.frame_type != "I" else None,
     ).to_bytes()
 
-    q_shift, expgol = nn_side_info["residue"]
-    out += encode_coolchic(frame_params["residue"], fcfg.cc_cfgs["residue"], q_shift,
-                           expgol, profile=profile)
+    for name in ["residue"] + (["motion"] if fcfg.frame_type != "I" else []):
+        q_shift, expgol = nn_side_info[name]
+        out += encode_coolchic(frame_params[name], fcfg.cc_cfgs[name], q_shift, expgol,
+                               profile=profile)
     return out

@@ -1,7 +1,11 @@
-"""Decode a .cool bitstream with the PyTorch port (intra frames, either
-profile).
+"""Decode a .cool bitstream with the PyTorch port (I, P and B frames,
+either profile).
 
-Example: python -m coolchic_tpu_torch.cc_decode -i bitstream.cool -o decoded.ppm
+Examples:
+    python -m coolchic_tpu_torch.cc_decode -i bitstream.cool -o decoded.ppm
+    python -m coolchic_tpu_torch.cc_decode -i clip.cool -o decoded_768x512_yuv420_8b.yuv
+
+A multi-frame file writes every frame, in display order, to one .yuv.
 """
 
 from __future__ import annotations

@@ -1,21 +1,29 @@
-"""Encode one intra frame of an image or video with the PyTorch port.
+"""Encode one frame (I, P or B) of an image or video with the PyTorch port.
 
     python -m coolchic_tpu_torch.cc_encode -i img.ppm -o out.cool \\
         --dec_cfg_residue hop --lmbda 1e-3 [--profile tpu] [--device cpu] \\
         [--no_rdoq] [--tune wasserstein]
+    python -m coolchic_tpu_torch.cc_encode -i clip_768x512_yuv420_8b.yuv \\
+        -o out.cool --workdir w --n_frames 3 --intra_pos 0 --p_pos -1 \\
+        --coding_idx 1          # after --coding_idx 0, same workdir
 
-The I-frame counterpart of the repo's cc_encode.py: the same 3-level
+The counterpart of the repo's cc_encode.py: the same 3-level
 configuration (argument defaults < config file or operating-point name
-given by --dec_cfg_residue < explicit command line), the same recipes,
+given by --dec_cfg_residue / --dec_cfg_motion < explicit command line; a
+residue name resolves against the intra table for I frames and the residue
+table for P/B), the same recipes (auto = intra or inter by frame type),
 bitstream profiles and RDOQ (on unless --no_rdoq), `--tune wasserstein`
 (common randomness, the serial trainer, refused for .yuv input),
 `--device` (default cuda) in place of `--cpu`. The workdir gets param.txt,
 archi.txt, the summary and reference-schema encoder TSVs, the detailed
-logs and the decoder TSV. Every encode is decoded back by the port's own
-decoder; a PSNR more than 0.3 dB off the encoder's, or a real rate more
-than 20 % off its estimate, exits non-zero.
+logs and the decoder TSV. A P/B frame reads its decoded references from
+the workdir, so the frames of a clip are encoded in coding order into one
+workdir and one output file (frame 0 writes it, later frames append).
+Every encode is decoded back by the port's own decoder (the whole file up
+to this coding index); a PSNR more than 0.3 dB off the encoder's, or a
+real rate more than 20 % off its estimate, exits non-zero.
 
-Not ported yet: P/B frames, --spatial_shard.
+Not ported yet: --spatial_shard.
 """
 
 from __future__ import annotations
@@ -30,14 +38,24 @@ from coolchic_tpu_torch.utils.configfile import ConfigArgParser
 DEC_DEFAULTS = {
     "layers_synthesis_residue": "48-1-linear-relu,X-1-linear-none,"
                                 "X-3-residual-relu,X-3-residual-none/stabiliser",
+    "layers_synthesis_motion": "16-1-linear-relu,X-1-linear-none/stabiliser",
     "arm_residue": "14,2/stabiliser",
+    "arm_motion": "6,2/stabiliser",
     "output_feature_ifce_residue": 6,
+    "output_feature_ifce_motion": 6,
     "ifce_resolution_residue": "0-2",
+    "ifce_resolution_motion": "2-2",
     "hyperlatent_resolution_residue": "auto",
+    "hyperlatent_resolution_motion": "no",
     "latent_resolution_residue": "auto",
+    "latent_resolution_motion": "2-6",
     "ups_k_size_residue": 8,
+    "ups_k_size_motion": 8,
     "ups_preconcat_k_size_residue": 7,
+    "ups_preconcat_k_size_motion": 7,
 }
+_DEC_KEYS = ("latent_resolution", "hyperlatent_resolution", "arm", "output_feature_ifce",
+             "ifce_resolution", "layers_synthesis", "ups_k_size", "ups_preconcat_k_size")
 
 
 def build_parser() -> ConfigArgParser:
@@ -46,7 +64,7 @@ def build_parser() -> ConfigArgParser:
     p.add("-i", "--input", required=True, help="png / ppm / yuv input")
     p.add("-o", "--output", default="./bitstream.cool", help="output .cool bitstream")
     p.add("--nobitstream", action="store_true", help="don't write a bitstream")
-    p.add("--workdir", default=None, help="working directory (decoded frame etc.)")
+    p.add("--workdir", default=None, help="working directory (decoded refs etc.)")
     p.add("--lmbda", type=float, default=1e-3, help="rate constraint lambda")
     p.add("--print_detailed_archi", action="store_true")
     p.add("--print_detailed_struct", action="store_true")
@@ -65,21 +83,26 @@ def build_parser() -> ConfigArgParser:
     p.add("-v", "--verbose", action="count", default=1)
     # -------- configuration-file sources
     p.add("--dec_cfg_residue", default="hop",
-          help="intra decoder: operating point name (lop/mop/hop/vhop) or cfg "
-               "file path")
+          help="residue (or intra) decoder: operating point name "
+               "(vlop/lop/mop/hop/vhop) or cfg file path")
+    p.add("--dec_cfg_motion", default="mop",
+          help="motion decoder: operating point name (lop/mop) or cfg file path")
     # -------- encoder-side (overridable from cfg files)
     p.add("--start_lr", type=float, default=1e-2)
     p.add("--n_itr", type=int, default=int(1e4),
           help="iterations of the main training stage")
+    p.add("--n_itr_pretrain_motion", type=int, default=3000)
     p.add("--tune", default="mse", choices=["mse", "wasserstein"])
     p.add("--debug", action="store_true", help="extremely quick training")
     p.add("--recipe", default="auto",
-          choices=["auto", "intra", "debug", "measure_speed"])
+          choices=["auto", "intra", "inter", "debug", "measure_speed"])
     p.add("--no_rdoq", action="store_true", help="skip rate-distortion-optimized "
           "quantization of the NN parameters")
     # -------- decoder-side architecture (overridable from cfg files)
     for key, default in DEC_DEFAULTS.items():
         p.add(f"--{key}", type=type(default), default=default)
+    p.add("--warp_filter_size", type=int, default=8,
+          help="taps of the warping interpolation filter")
     return p
 
 
@@ -93,7 +116,9 @@ def main(argv: list[str] | None = None) -> int:
     from coolchic_tpu_torch.utils.codingstructure import CodingStructure
     from coolchic_tpu_torch.utils.parsecli import (
         intra_operating_points,
+        motion_operating_points,
         parse_frame_positions,
+        residue_operating_points,
     )
 
     device = resolve_device(args.device)
@@ -111,12 +136,15 @@ def main(argv: list[str] | None = None) -> int:
     if frame is None:
         print(f"no frame with coding_idx {args.coding_idx}")
         return 1
-    if frame.frame_type != "I":
-        raise SystemExit(f"cc_encode: {frame.frame_type} frames are not encoded by "
-                         "the port yet (I only)")
-
-    parser.apply_config(args, args.dec_cfg_residue, table=intra_operating_points(),
+    # the table for --dec_cfg_residue depends on the frame type (intra and
+    # residue operating points share their names)
+    inter = frame.frame_type != "I"
+    parser.apply_config(args, args.dec_cfg_residue,
+                        table=residue_operating_points() if inter else intra_operating_points(),
                         suffix="_residue")
+    if inter:
+        parser.apply_config(args, args.dec_cfg_motion, table=motion_operating_points(),
+                            suffix="_motion")
     with open(os.path.join(workdir, "param.txt"), "w") as f:
         f.write(parser.format_values())
 
@@ -133,18 +161,17 @@ def main(argv: list[str] | None = None) -> int:
     if args.debug:
         recipe = "debug"
     elif recipe == "auto":
-        recipe = "intra"
+        recipe = "inter" if inter else "intra"
     preset = AVAILABLE_PRESETS[recipe](
         lmbda=args.lmbda, start_lr=args.start_lr, itr_main_training=args.n_itr,
-        dist_weight=dist_weight)
+        itr_motion_pretrain=args.n_itr_pretrain_motion, dist_weight=dist_weight)
 
-    cfg_args = {"residue": {
-        k: str(getattr(args, k + "_residue")) for k in (
-            "latent_resolution", "hyperlatent_resolution", "arm", "output_feature_ifce",
-            "ifce_resolution", "layers_synthesis", "ups_k_size", "ups_preconcat_k_size")}}
+    cfg_args = {name: {k: str(getattr(args, f"{k}_{name}")) for k in _DEC_KEYS}
+                for name in (("residue", "motion") if inter else ("residue",))}
 
     res = encode_one_frame(frame, cs, args.input, workdir, preset, cfg_args,
-                           seed=args.seed, verbose=args.verbose > 0, tune=args.tune,
+                           warp_filter_size=args.warp_filter_size, seed=args.seed,
+                           verbose=args.verbose > 0, tune=args.tune,
                            rdoq=not args.no_rdoq, profile=args.profile, device=device)
     _write_archi(os.path.join(workdir, "archi.txt"), res, verbose=args.print_detailed_archi)
 

@@ -13,6 +13,9 @@ import numpy as np
 
 from coolchic_tpu_torch.io.framedata import FrameData
 
+BT709 = (0.2126, 0.7152, 0.0722)  # (Kr, Kg, Kb)
+
+
 def parse_yuv_size(file_path: str) -> tuple[int, int]:
     """"/a/b/name_WxH_fps_...yuv" -> (W, H)."""
     w, h = [int(v) for v in os.path.basename(file_path).split(".")[0].split("_")[1].split("x")]
@@ -55,6 +58,26 @@ def write_yuv(frame: FrameData, file_path: str, norm: bool = True, append: bool 
         for p in planes:
             arr = np.round(np.asarray(p, dtype=np.float32) * norm_factor).astype(dtype)
             f.write(arr.tobytes())
+
+
+def rgb2yuv(rgb: np.ndarray) -> np.ndarray:
+    """[B, 3, H, W] RGB in [0, 1] -> BT.709 YCbCr (chroma centred on 0.5)."""
+    kr, kg, kb = BT709
+    r, g, b = rgb[:, 0:1], rgb[:, 1:2], rgb[:, 2:3]
+    y = kr * r + kg * g + kb * b
+    cb = 0.5 * (b - y) / (1 - kb) + 0.5
+    cr = 0.5 * (r - y) / (1 - kr) + 0.5
+    return np.concatenate([y, cb, cr], axis=1)
+
+
+def yuv2rgb(yuv: np.ndarray) -> np.ndarray:
+    """The inverse of rgb2yuv."""
+    kr, kg, kb = BT709
+    y, cb, cr = yuv[:, 0:1], yuv[:, 1:2], yuv[:, 2:3]
+    r = y + (2 - 2 * kr) * (cr - 0.5)
+    b = y + (2 - 2 * kb) * (cb - 0.5)
+    g = (y - kr * r - kb * b) / kg
+    return np.concatenate([r, g, b], axis=1)
 
 
 def convert_444_to_420(yuv444: np.ndarray) -> dict:

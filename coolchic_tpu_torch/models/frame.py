@@ -1,7 +1,14 @@
-"""Frame-level model: the Cool-Chic decoder(s) of one frame.
+"""Frame-level model: one or two Cool-Chic decoders + motion compensation.
 
-For an I frame the decoded image is the residue decoder's output. P and B
-frames (motion decoder, warping) are not ported yet.
+For an I frame the decoded image is the residue decoder's output; for P/B
+frames the motion decoder produces optical flow(s) and the residue decoder
+produces (residue, alpha[, beta]) so that
+
+    P: x = alpha * warp(ref1, flow1) + residue
+    B: x = alpha * (beta * warp(ref1, flow1) + (1-beta) * warp(ref2, flow2))
+           + residue         (alpha, beta = clamp(raw + 0.5, 0, 1))
+
+where each reference is first shifted by its integer global flow.
 
 Batched like models/coolchic.py: every parameter leaf carries a leading
 axis of G images.
@@ -20,6 +27,7 @@ import torch
 from coolchic_tpu_torch.core.arch import CoolChicConfig
 from coolchic_tpu_torch.core.quantizer import clip
 from coolchic_tpu_torch.models.coolchic import coolchic_forward, coolchic_init, make_cr_grids
+from coolchic_tpu_torch.models.warp import shift_references, warp_fn
 
 
 @dataclass(frozen=True)
@@ -50,20 +58,19 @@ class FrameConfig:
 class FrameEncoderOutput(NamedTuple):
     decoded_image: torch.Tensor | dict
     rate: Dict[str, torch.Tensor]
-
-
-def _intra_only(fcfg: FrameConfig) -> None:
-    if fcfg.frame_type != "I":
-        raise NotImplementedError(
-            f"{fcfg.frame_type} frames are not encoded by the port yet (I only)")
+    # inter-frame intermediates for the detailed logs (reference
+    # FrameEncoderOutput.additional_data, training/test.py:160-235):
+    # {"alpha", "beta", "pred", "masked_pred", "residue", "flow_1",
+    # "flow_2"}; None for I frames.
+    additional_data: Optional[dict] = None
 
 
 def frame_encoder_init(generator: torch.Generator, fcfg: FrameConfig,
                        img_min_max: Optional[torch.Tensor] = None,
                        device: torch.device | str = "cpu") -> dict:
-    """One image's params: {"residue": <coolchic params>, "global_flow_1":
-    [2], "global_flow_2": [2]} (the flows stay zero for I frames)."""
-    _intra_only(fcfg)
+    """One image's params: {"residue": <coolchic params>[, "motion": ...],
+    "global_flow_1": [2], "global_flow_2": [2]} (the flows stay zero for I
+    frames; the encoder sets them for P/B)."""
     params: dict = {}
     for name, cfg in fcfg.cc_cfgs.items():
         params[name] = coolchic_init(generator, cfg,
@@ -87,17 +94,19 @@ def _to_420(x: torch.Tensor) -> dict:
 
 
 def frame_encoder_forward(params: dict, fcfg: FrameConfig, *,
+                          reference_frames: Optional[list] = None,
                           noise: Optional[dict] = None,
                           quantizer_type: str = "softround",
                           soft_round_temperature=0.3,
                           training: bool = True,
                           ac_max_val: int = -1,
                           cr: Optional[dict] = None) -> FrameEncoderOutput:
-    """Batched I-frame forward. `noise`: {cc name: [one tensor per grid]}
-    or None; `cr`: frame_cr_grids' dict, or None. Returns the decoded
-    image(s) [G, C, H, W] (a dict of planes for yuv420), clipped to [0, 1],
-    and rounded to the bitdepth when not training."""
-    _intra_only(fcfg)
+    """Batched forward. `reference_frames`: for P/B, one [G, 3, H, W]
+    tensor per reference (dense, 444 for yuv420), unshifted; `noise`: {cc
+    name: [one tensor per grid]} or None; `cr`: frame_cr_grids' dict, or
+    None. Returns the decoded image(s) [G, C, H, W] (a dict of planes for
+    yuv420), clipped to [0, 1] (not for frame_data_type "flow"), and
+    rounded to the bitdepth when not training."""
     cc_out = {}
     for name, cfg in fcfg.cc_cfgs.items():
         cc_out[name] = coolchic_forward(
@@ -107,7 +116,31 @@ def frame_encoder_forward(params: dict, fcfg: FrameConfig, *,
             cr=None if cr is None else cr.get(name))
 
     rate = {name: out.rate for name, out in cc_out.items()}
-    decoded = cc_out["residue"].raw_out
+    additional = None
+    if fcfg.frame_type == "I":
+        decoded = cc_out["residue"].raw_out
+    else:
+        raw = cc_out["residue"].raw_out
+        residue = raw[:, :3]
+        alpha = clip(raw[:, 3:4] + 0.5, 0.0, 1.0)
+        motion = cc_out["motion"].raw_out
+        flow_1 = motion[:, 0:2]
+        refs = shift_references(
+            reference_frames, [params[f"global_flow_{i + 1}"]
+                               for i in range(len(reference_frames))])
+        fsize = fcfg.warp_filter_size
+        if fcfg.frame_type == "P":
+            pred = warp_fn(refs[0], flow_1, fsize, training=training)
+            beta = flow_2 = None
+        else:
+            flow_2 = motion[:, 2:4]
+            beta = clip(raw[:, 4:5] + 0.5, 0.0, 1.0)
+            pred = beta * warp_fn(refs[0], flow_1, fsize, training=training) \
+                + (1.0 - beta) * warp_fn(refs[1], flow_2, fsize, training=training)
+        decoded = alpha * pred + residue
+        additional = {"alpha": alpha, "beta": beta, "pred": pred,
+                      "masked_pred": alpha * pred, "residue": residue,
+                      "flow_1": flow_1, "flow_2": flow_2}
 
     if fcfg.frame_data_type == "yuv420":
         decoded = {k: clip(v, 0.0, 1.0) for k, v in _to_420(decoded).items()}
@@ -121,4 +154,4 @@ def frame_encoder_forward(params: dict, fcfg: FrameConfig, *,
         else:
             decoded = torch.round(decoded * max_dyn) / max_dyn
 
-    return FrameEncoderOutput(decoded_image=decoded, rate=rate)
+    return FrameEncoderOutput(decoded_image=decoded, rate=rate, additional_data=additional)

@@ -1,11 +1,17 @@
-"""RDOQ: greedy rate-distortion refinement of the quantized NN parameters,
-I frames.
+"""RDOQ: greedy rate-distortion refinement of the quantized NN parameters.
 
 ARM and IFCE are scored by pure rate (latent rate + module NN rate:
 distortion does not move under entropy-model edits), synthesis by
 distortion after bitdepth rounding + NN rate (RGB and YUV420), upsampling
 and the synthesis rescale case (size_per_latent[0] != img_size) by a full
 reconstruction per candidate (reference coolchic/nnquant/rdoq.py:28-462).
+
+P/B frames (the reference's full-test() fallback, rdoq.py:131-137) score
+the frame's reconstruction with the other cool-chic's contribution held
+fixed (frame_ctx): the residue's synthesis row tiles and upsampling lanes
+blend fixed warped references; every motion lane re-derives the flow and
+re-warps the globally shifted references (the motion cool-chic always
+takes the full-resolution lanes: its latents start below the image size).
 
 Orchestration (the JAX package's, coolchic_tpu/nnquant/rdoq.py): scalars
 are processed in chunks in an order drawn from np.random.default_rng(seed);
@@ -24,12 +30,9 @@ epsilon on the rollback checks); `_sweep` is that one algorithm with the
 epsilon as an argument. The values that decide which edits are accepted
 are JAX's: the scalars per probe, the shift ladders, the rng order.
 Memory-only knobs (latent slabs of the rate scorers, row tiles of the
-synthesis scorer, lane groups of the full scorer) are sized from the
-device's free memory instead of a v5e's: they change nothing but f32
-summation order.
-
-P/B frames (frame_ctx: warped references, the motion cool-chic) are not
-ported yet.
+synthesis scorer, lane groups of the full scorer, with a motion lane's
+warp tensors counted) are sized from the device's free memory instead of a
+v5e's: they change nothing but f32 summation order.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from coolchic_tpu_torch.models.coolchic import ifce_context, make_cr_grids, synt
 from coolchic_tpu_torch.models.frame import _to_420
 from coolchic_tpu_torch.models.synthesis import synthesis_apply
 from coolchic_tpu_torch.models.upsampling import fixed_upsampling, upsampling_apply
+from coolchic_tpu_torch.models.warp import warp_fn
 from coolchic_tpu_torch.nnquant.quantize import best_expgol
 from coolchic_tpu_torch.ops.context import spatial_context
 from coolchic_tpu_torch.ops.resize import interpolate
@@ -69,6 +73,10 @@ _MAX_Q = 65535
 # Live activation tensors of one probe, in units of its widest tensor
 # (inputs, a layer's output, ReLU / residual temporaries, rate terms).
 _LIVE = 8
+# Bytes per pixel and filter tap of one lane's warp (models/warp.py): the
+# int64 tap indices and gather index, the f32 coefficients, one y-tap's
+# [3, k] neighbours and their product.
+_WARP_BYTES_PER_TAP_PX = 64
 
 
 def _arm_shifts(n_lat: int) -> tuple:
@@ -272,14 +280,31 @@ def _syn_tile_count(cfg: CoolChicConfig, lanes: int, budget_bytes: int) -> int:
     return h
 
 
+def _blend(raw: torch.Tensor, frame_type: str, preds: list) -> torch.Tensor:
+    """The decoded frame of a P/B residue output (models/frame.py):
+    alpha * pred + residue, pred = warp 1 (P) or the beta blend of both
+    (B); raw itself for an I frame."""
+    if frame_type == "I":
+        return raw
+    alpha = torch.clamp(raw[:, 3:4] + 0.5, 0.0, 1.0)
+    if frame_type == "P":
+        pred = preds[0]
+    else:
+        beta = torch.clamp(raw[:, 4:5] + 0.5, 0.0, 1.0)
+        pred = beta * preds[0] + (1.0 - beta) * preds[1]
+    return alpha * pred + raw[:, :3]
+
+
 def _make_syn_scorer(cfg: CoolChicConfig, wb: str, lmbda: float, q: float, cnt: int,
                      shapes_w, shapes_b, frame_data_type: str, bitdepth: int,
-                     n_tiles: int, syn_in: torch.Tensor, target: torch.Tensor):
-    """Synthesis scorer of an I frame: distortion after bitdepth rounding
-    (and 444->420 conversion for YUV) + lmbda * NN rate / n_pixels. The conv
-    stack runs tile by tile over image rows with a receptive-field halo of
-    edge-replicated rows, as the JAX package's tile scorer does. syn_in:
-    [1, C_in, H, W]; target: [1, 3, H, W] (444 for yuv420)."""
+                     n_tiles: int, syn_in: torch.Tensor, target: torch.Tensor,
+                     frame_type: str = "I", warps: tuple = ()):
+    """Synthesis scorer of the residue cool-chic: distortion after bitdepth
+    rounding (and 444->420 conversion for YUV) + lmbda * NN rate / n_pixels.
+    The conv stack runs tile by tile over image rows with a receptive-field
+    halo of edge-replicated rows, as the JAX package's tile scorer does.
+    syn_in: [1, C_in, H, W]; target: [1, 3, H, W] (444 for yuv420); warps:
+    a P/B frame's fixed warped references [1, 3, H, W], sliced per tile."""
     h, w = cfg.img_size
     halo = sum((k - 1) // 2 for _, k, _, _ in cfg.parsed_synthesis)
     max_dyn = float(2 ** bitdepth - 1)
@@ -289,7 +314,8 @@ def _make_syn_scorer(cfg: CoolChicConfig, wb: str, lmbda: float, q: float, cnt: 
     if frame_data_type == "yuv420":
         npx = float(row_w_np.sum() * w + row_w_np[:, 0::2].sum() * w)
     else:
-        npx = float(row_w_np.sum() * cfg.synthesis_out_ft * w)
+        n_ch = cfg.synthesis_out_ft if frame_type == "I" else 3
+        npx = float(row_w_np.sum() * n_ch * w)
     row_w = torch.as_tensor(row_w_np, device=syn_in.device)
     syn_pad = F.pad(syn_in, (0, 0, halo, halo), mode="replicate")
     specs = cfg.parsed_synthesis
@@ -302,7 +328,8 @@ def _make_syn_scorer(cfg: CoolChicConfig, wb: str, lmbda: float, q: float, cnt: 
         sse = syn_in.new_zeros(G)
         for t, start in enumerate(starts):
             tile_in = syn_pad[:, :, start:start + rows_per + 2 * halo].expand(G, -1, -1, -1)
-            out = synthesis_apply(syn, specs, tile_in)[:, :, halo:halo + rows_per]
+            out = _blend(synthesis_apply(syn, specs, tile_in)[:, :, halo:halo + rows_per],
+                         frame_type, [wp[:, :, start:start + rows_per] for wp in warps])
             tgt = target[:, :, start:start + rows_per]
             w_t = row_w[t]
             if frame_data_type == "yuv420":
@@ -350,23 +377,42 @@ def _make_full_scorer(cfg: CoolChicConfig, module: str, wb: str, lmbda: float, q
                       syn_flat_b: Optional[torch.Tensor] = None,
                       syn_shapes_w=None, syn_shapes_b=None,
                       grids: Optional[list] = None,
-                      cr_extra: Optional[torch.Tensor] = None):
-    """Full-resolution reconstruction scorer of an I frame: the UPSAMPLING
-    module (edits move the dense stack, which is global, so row tiles do not
-    apply) and the synthesis rescale case (the synthesis output is
-    interpolated to the image size). Latent rate is constant under these
+                      cr_extra: Optional[torch.Tensor] = None,
+                      frame_type: str = "I", role: str = "residue", aux: tuple = (),
+                      warp_filter_size: int = 8):
+    """Full-resolution reconstruction scorer: the UPSAMPLING module (edits
+    move the dense stack, which is global, so row tiles do not apply), the
+    synthesis rescale case (the synthesis output is interpolated to the
+    image size), and every module of the MOTION cool-chic (edits move the
+    flow, hence the warped prediction). Latent rate is constant under these
     edits: score = distortion(decoded) + lmbda * module NN bits / n_pixels.
 
     module "synthesis": syn_in [1, C, h0, w0] is the fixed input.
     module "upsampling": the fixed synthesis (syn_flat_w / _b), the [h, w]
     synthesis grids, and cr_extra [1, C_cr, H, W] with common randomness.
-    Lanes run in groups whose reconstructions fit the budget."""
+    aux, for P/B frames: role "residue", the fixed warped reference(s);
+    role "motion", (the residue cool-chic's fixed raw output, *the globally
+    shifted references), re-warped in each lane by its flow(s).
+    Lanes run in groups whose reconstructions (and warps) fit the budget."""
     h, w = cfg.img_size
     n_pixels = h * w
     max_dyn = float(2 ** bitdepth - 1)
     specs = cfg.parsed_synthesis
     width = max([cfg.input_feature_synthesis] + [o for o, _, _, _ in specs])
-    group = max(1, budget_bytes // (_LIVE * 4 * width * n_pixels))
+    lane_bytes = _LIVE * 4 * width * n_pixels
+    if role == "motion":
+        lane_bytes += _WARP_BYTES_PER_TAP_PX * warp_filter_size * n_pixels
+    group = max(1, budget_bytes // lane_bytes)
+
+    def decoded(raw):
+        """The frame decoded from g lanes' raw outputs [g, C, H, W]."""
+        if frame_type == "I" or role == "residue":
+            return _blend(raw, frame_type, list(aux))
+        g = raw.shape[0]
+        other, refs = aux[0].expand(g, -1, -1, -1), aux[1:]
+        preds = [warp_fn(r.expand(g, -1, -1, -1), raw[:, 2 * i:2 * i + 2], warp_filter_size,
+                         training=False) for i, r in enumerate(refs)]
+        return _blend(other, frame_type, preds)
 
     def recon(fw, fb):
         g = fw.shape[0]
@@ -388,8 +434,8 @@ def _make_full_scorer(cfg: CoolChicConfig, module: str, wb: str, lmbda: float, q
     def score(flat_w, flat_b, idxs, vals):
         S, C = vals.shape
         fw, fb, edited = _lanes(flat_w, flat_b, wb, idxs, vals)
-        dist = torch.cat([_full_dist(recon(fw[g0:g0 + group], fb[g0:g0 + group]), target,
-                                     frame_data_type, max_dyn)
+        dist = torch.cat([_full_dist(decoded(recon(fw[g0:g0 + group], fb[g0:g0 + group])),
+                                     target, frame_data_type, max_dyn)
                           for g0 in range(0, S * C, group)])
         return (dist + lmbda * _nn_bits(edited, q, cnt) / n_pixels).reshape(S, C)
 
@@ -478,13 +524,31 @@ def _sweep(scorer, flat_w: np.ndarray, flat_b: np.ndarray, wb: str, shifts: tupl
     return flat_w, flat
 
 
+def _frame_aux(frame_ctx: Optional[dict], frame_type: str, device: torch.device) -> tuple:
+    """The fixed P/B activations of frame_ctx on `device` (see
+    rdoq_coolchic): the warps (role residue), or the other cool-chic's raw
+    output then the shifted references (role motion); () for I frames."""
+    if frame_type == "I":
+        return ()
+    keys = ("warps",) if frame_ctx.get("role", "residue") == "residue" \
+        else ("other_raw", "refs")
+    out = []
+    for k in keys:
+        v = frame_ctx[k]
+        for a in (v if isinstance(v, (list, tuple)) else [v]):
+            out.append(torch.as_tensor(np.asarray(a, np.float32) if not torch.is_tensor(a)
+                                       else a.float(), device=device))
+    return tuple(out)
+
+
 def module_scorers(params: dict, cfg: CoolChicConfig, module: str, q_shift: dict,
                    expgol: dict, lmbda: float, target, frame_data_type: str, bitdepth: int,
-                   device: torch.device, budget_bytes: int) -> tuple[tuple, int, float, dict]:
-    """One module's sweep setup for the current (numpy) params of an I
-    frame: (shifts, chunk, eps, {wb: scorer}) for the wb sweeps that run.
-    The scorers' fixed activations depend only on the other modules, so
-    the bias scorer stays valid after the weight sweep."""
+                   device: torch.device, budget_bytes: int, frame_type: str = "I",
+                   frame_ctx: Optional[dict] = None) -> tuple[tuple, int, float, dict]:
+    """One module's sweep setup for the current (numpy) params: (shifts,
+    chunk, eps, {wb: scorer}) for the wb sweeps that run. The scorers'
+    fixed activations depend only on the other modules, so the bias scorer
+    stays valid after the weight sweep. frame_ctx: as rdoq_coolchic's."""
     latents = [torch.round(torch.tensor(np.asarray(lat, np.float32), device=device)
                            * cfg.encoder_gain) for lat in params["latents"]]
     n_lat = sum(g.numel() for g in latents)
@@ -539,7 +603,9 @@ def module_scorers(params: dict, cfg: CoolChicConfig, module: str, q_shift: dict
     cr = make_cr_grids(cfg, device)
     rescale = cfg.size_per_latent[0] != cfg.img_size
     tgt = on_dev(target)
-    use_tiles = module == "synthesis" and not rescale
+    role = (frame_ctx or {}).get("role", "residue")
+    aux = _frame_aux(frame_ctx, frame_type, device)
+    use_tiles = module == "synthesis" and role == "residue" and not rescale
     # full-resolution lanes hold a whole reconstruction each: small chunks
     # on big images (the JAX package's chunk sizes); synthesis / upsampling
     # decide as its host sweep (f64, a 1e-9 epsilon)
@@ -548,7 +614,9 @@ def module_scorers(params: dict, cfg: CoolChicConfig, module: str, q_shift: dict
     else:
         chunk = 2 if n_lat > _BIG_N_LAT else 8
     shifts, eps = SYN_SHIFTS, 1e-9
-    kw = dict(frame_data_type=frame_data_type, bitdepth=bitdepth)
+    kw = dict(frame_data_type=frame_data_type, bitdepth=bitdepth, frame_type=frame_type)
+    full_kw = dict(role=role, aux=aux,
+                   warp_filter_size=int((frame_ctx or {}).get("warp_filter_size", 8)))
     if module == "synthesis":
         ups = batched(params["upsampling"])
         dense = upsampling_apply(ups["tconv_half"], ups["conv_half"],
@@ -561,12 +629,13 @@ def module_scorers(params: dict, cfg: CoolChicConfig, module: str, q_shift: dict
             n_tiles = _syn_tile_count(cfg, chunk * len(shifts), budget_bytes)
             scorers = {wb: _make_syn_scorer(cfg, wb, float(lmbda), *q_cnt(wb),
                                             shapes["weight"], shapes["bias"], n_tiles=n_tiles,
-                                            syn_in=syn_in, target=tgt, **kw)
+                                            syn_in=syn_in, target=tgt, warps=aux, **kw)
                        for wb in wbs}
         else:
             scorers = {wb: _make_full_scorer(cfg, module, wb, float(lmbda), *q_cnt(wb),
                                              shapes["weight"], shapes["bias"], target=tgt,
-                                             budget_bytes=budget_bytes, syn_in=syn_in, **kw)
+                                             budget_bytes=budget_bytes, syn_in=syn_in,
+                                             **full_kw, **kw)
                        for wb in wbs}
         return shifts, chunk, eps, scorers
 
@@ -581,7 +650,7 @@ def module_scorers(params: dict, cfg: CoolChicConfig, module: str, q_shift: dict
     scorers = {wb: _make_full_scorer(cfg, module, wb, float(lmbda), *q_cnt(wb),
                                      shapes["weight"], shapes["bias"], target=tgt,
                                      budget_bytes=budget_bytes, grids=syn_grids,
-                                     cr_extra=cr_extra, **syn, **kw)
+                                     cr_extra=cr_extra, **syn, **full_kw, **kw)
                for wb in wbs}
     return shifts, chunk, eps, scorers
 
@@ -597,15 +666,31 @@ def rdoq_coolchic(cc_params: dict, cfg: CoolChicConfig, q_shift: dict, expgol: d
 
     target: dense [1, C, H, W] array (RGB, or the 444 representation of
     yuv420 content: the scorers convert to 420 and weight channels by pixel
-    count, as the reference's score_syn_image does). `expgol` is updated in
+    count, as the reference's score_syn_image does).
+
+    frame_ctx: the fixed frame-level activations that let synthesis and
+    upsampling be scored on P/B frames (arrays or tensors). Keys:
+      role: "residue" (default) or "motion" -- which cool-chic this is;
+      warps: for role residue, the warped (and globally shifted)
+        reference(s) [1, 3, H, W] under the current motion, 1 for P, 2 for B;
+      other_raw: for role motion, the residue cool-chic's fixed raw output
+        [1, 4|5, H, W] (residue, alpha (, beta));
+      refs: for role motion, the globally shifted references [1, 3, H, W];
+      warp_filter_size: for role motion, the frame's warp filter taps.
+    With frame_ctx None on a P/B frame only ARM and IFCE are refined.
+
+    `expgol` is updated in
     place by the post-RDOQ exp-Golomb re-search. `log`, when given, gains
     one record per (module, wb) sweep: seconds (the device synchronised),
     the scalar count, and _sweep's counts (probes, lanes, host syncs,
     scalars adjusted, rollbacks, ties)."""
-    if frame_ctx is not None:
-        raise NotImplementedError("RDOQ of P/B frames (frame_ctx) is not ported yet")
     device = torch.device(device)
-    has_recon = target is not None and frame_type == "I"
+    role = (frame_ctx or {}).get("role", "residue")
+    has_recon = target is not None and (
+        frame_type == "I"
+        or (frame_ctx is not None
+            and (("warps" in frame_ctx) if role == "residue"
+                 else ("refs" in frame_ctx and "other_raw" in frame_ctx))))
     if modules is None:
         # reference order: sorted(modules_to_send) = arm, ifce?, synthesis,
         # upsampling (reference nnquant/rdoq.py:68)
@@ -626,7 +711,7 @@ def rdoq_coolchic(cc_params: dict, cfg: CoolChicConfig, q_shift: dict, expgol: d
             continue
         shifts, chunk, eps, scorers = module_scorers(
             params, cfg, module, q_shift, expgol, lmbda, target, frame_data_type, bitdepth,
-            device, budget)
+            device, budget, frame_type=frame_type, frame_ctx=frame_ctx)
         for wb, scorer in scorers.items():
             stats = {}
             t0 = time.time()

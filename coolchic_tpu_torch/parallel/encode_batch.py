@@ -41,8 +41,8 @@ def _select(mask_b: torch.Tensor, new: list, old: list) -> list:
 
 def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerPhase,
                    monitor: EncoderMonitor, verbose: bool, *, noise_source,
-                   seed_soap: bool = True, cr: Optional[dict] = None
-                   ) -> tuple[dict, torch.Tensor]:
+                   seed_soap: bool = True, cr: Optional[dict] = None,
+                   refs_b: Optional[list] = None) -> tuple[dict, torch.Tensor]:
     """One training phase over the batch; returns (best params per image,
     best loss [G]).
 
@@ -53,7 +53,8 @@ def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerP
     (train.TorchNoise, or a test's injected draws). `seed_soap=False` skips
     the SOAP seeding gradient, as the JAX warm-up does. `cr`: the
     common-randomness grids every slot shares (models/frame.py:
-    frame_cr_grids), or None."""
+    frame_cr_grids), or None. `refs_b`: a P/B frame's decoded references,
+    one [G, 3, H, W] tensor each, riding the batch axis with the targets."""
     like = params_b
     leaves = [x.detach() for x in tree_leaves(params_b)]
     dev = leaves[0].device
@@ -78,10 +79,10 @@ def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerP
         # only the NN-weight gradients reach the host).
         temp0 = linear_schedule(phase.softround_temperature, 0, phase.max_itr)
         grads = fns.grads(leaves, draw("seed", noise_b[:, 0])(), temp0, targets_b,
-                          lmbda_b)
+                          lmbda_b, refs_b)
         opt = seed_opt_state(opt, grads, fns.groups, fns.hp_weight)
 
-    best_loss = fns.eval(leaves, targets_b, lmbda_b).loss
+    best_loss = fns.eval(leaves, targets_b, lmbda_b, refs_b).loss
     best = [x.clone() for x in leaves]
 
     n_windows = math.ceil(phase.max_itr / phase.freq_valid)
@@ -104,11 +105,11 @@ def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerP
         n_steps = min(phase.freq_valid, phase.max_itr - cnt)
 
         leaves, opt = fns.window(leaves, opt, draw("step", noise), n_steps, temp, lr_t,
-                                 targets_b, lmbda_b)
+                                 targets_b, lmbda_b, refs_b)
         cnt += n_steps
         monitor.iterations_counter += n_steps * n
 
-        lo = fns.eval(leaves, targets_b, lmbda_b)
+        lo = fns.eval(leaves, targets_b, lmbda_b, refs_b)
         improved = lo.loss < best_loss
         best = _select(improved, leaves, best)
         best_loss = torch.where(improved, lo.loss, best_loss)

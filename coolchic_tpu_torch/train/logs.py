@@ -2,9 +2,9 @@
 coolchic/training/test.py:32-234): loss breakdown, per-grid and per-module
 rates, decoder complexity, and the reference-schema TSV writers.
 
-I frames only: the alpha / beta and prediction fields stay 0, as the JAX
-package writes them for I frames. The text files are byte-identical to the
-JAX package's for the same values.
+For I frames the alpha / beta and prediction fields stay 0, as the JAX
+package writes them. The text files are byte-identical to the JAX
+package's for the same values.
 
 Reference parity: coolchic_tpu/train/logs.py.
 """
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from coolchic_tpu_torch.bitstream.nncodec import flatten_module_params
+from coolchic_tpu_torch.io.yuv import convert_420_to_444
 from coolchic_tpu_torch.models.frame import FrameConfig, frame_encoder_forward
 from coolchic_tpu_torch.models.params import tree_from_numpy
 from coolchic_tpu_torch.nnquant.quantize import exp_golomb_nbins
@@ -25,7 +26,8 @@ from coolchic_tpu_torch.train.params import tree_map
 from coolchic_tpu_torch.utils.complexity import macs_per_module, total_mac_per_pixel
 
 
-def detailed_test(params: dict, fcfg: FrameConfig, target, *, cr: Optional[dict] = None,
+def detailed_test(params: dict, fcfg: FrameConfig, target, *, refs: Optional[list] = None,
+                  cr: Optional[dict] = None,
                   dist_weight: Optional[dict] = None, lmbda: float = 1e-3,
                   nn_side_info: Optional[dict] = None,
                   encoding_time_second: float = 0.0,
@@ -33,16 +35,18 @@ def detailed_test(params: dict, fcfg: FrameConfig, target, *, cr: Optional[dict]
                   display_order: int = 0, coding_order: int = 0,
                   frame_offset: int = 0, seq_name: str = "",
                   device: torch.device | str = "cuda") -> dict:
-    """Hardround eval of one I frame with an exhaustive log dictionary (the
+    """Hardround eval of one frame with an exhaustive log dictionary (the
     reference's FrameEncoderLogs field set). `params`: one image's params
     (numpy or tensors, no batch axis); `target`: its [1, C, H, W] tensor
-    (or planes) on `device`."""
+    (or planes) on `device`; `refs`: a P/B frame's [1, 3, H, W] references
+    on `device`."""
     dist_weight = dist_weight or {"mse": 1.0}
     params_dev = tree_map(lambda x: x[None], tree_from_numpy(
         tree_map(lambda x: x.detach().cpu().numpy() if torch.is_tensor(x) else x, params),
         device))
     with torch.no_grad():
-        out = frame_encoder_forward(params_dev, fcfg, training=False, cr=cr)
+        out = frame_encoder_forward(params_dev, fcfg, reference_frames=refs,
+                                    training=False, cr=cr)
 
     n_pixels = fcfg.cc_cfgs["residue"].img_size[0] * fcfg.cc_cfgs["residue"].img_size[1]
 
@@ -93,12 +97,29 @@ def detailed_test(params: dict, fcfg: FrameConfig, target, *, cr: Optional[dict]
         for mod, macs in macs_per_module(cfg).items():
             logs[f"{cc_name}_{mod}_mac_per_pixel"] = macs
 
-    # --- Inter-frame intermediates (reference test.py:160-207): none for
-    # an I frame.
+    # --- Inter-frame intermediates: alpha/beta means, prediction quality
+    # (reference test.py:160-207); the dummy prediction is the mean of the
+    # unshifted references.
     logs["alpha_mean"] = 0.0
     logs["beta_mean"] = 0.0
     logs["pred_psnr_db"] = 0.0
     logs["dummy_pred_psnr_db"] = 0.0
+    if out.additional_data is not None:
+        ad = out.additional_data
+        logs["alpha_mean"] = float(ad["alpha"].mean())
+        if ad["beta"] is not None:
+            logs["beta_mean"] = float(ad["beta"].mean())
+        if isinstance(target, dict):
+            tgt_dense = torch.as_tensor(convert_420_to_444(
+                {k: v.cpu().numpy() for k, v in target.items()}), device=ad["pred"].device)
+        else:
+            tgt_dense = target
+        with torch.no_grad():
+            logs["pred_psnr_db"] = dist_to_db(float(compute_mse(ad["pred"], tgt_dense)[0]))
+            if refs:
+                dummy = sum(refs) / len(refs)
+                logs["dummy_pred_psnr_db"] = dist_to_db(
+                    float(compute_mse(dummy, tgt_dense)[0]))
 
     # --- Per-feature rate list + spatial rate map summary (reference
     # test.py:208-234: per-latent-grid bpp is the feature axis; the spatial

@@ -5,8 +5,9 @@ All hyperparameters mirror the reference presets
 (coolchic_tpu/train/presets.py): intra (2 warm-up stages of 5 then 2
 candidates, softround/gaussian main phase with temperature 0.35->0.08 and
 noise 0.22->0.15, lambda-dependent warm-up noise, 500-iteration hardround
-fine-tune at lr 1e-4), debug and measure_speed. The inter preset waits for
-the port's P/B frames.
+fine-tune at lr 1e-4), inter (one 2-candidate warm-up stage, a single
+softround phase, the motion pretraining phase at 20 x lambda), debug and
+measure_speed.
 """
 
 from __future__ import annotations
@@ -55,7 +56,9 @@ class Preset:
     itr_main_training: int
     precondition_frequency_model: int = 10
     preset_name: str = ""
+    itr_motion_pretrain: int = 0
     dist_weight: Dict[str, float] = field(default_factory=lambda: {"mse": 1.0})
+    motion_pretrain_phase: List[TrainerPhase] = field(default_factory=list, init=False)
     warmup: Warmup = field(default_factory=Warmup, init=False)
     training_phases: List[TrainerPhase] = field(default_factory=list, init=False)
 
@@ -129,6 +132,43 @@ class PresetIntra(Preset):
         ]
 
 
+class PresetInter(Preset):
+    def __post_init__(self):
+        self.preset_name = "inter"
+        self.training_phases = [
+            TrainerPhase(
+                lr=self.start_lr, max_itr=self.itr_main_training, patience=5000,
+                schedule_lr=True, quantizer_type="softround",
+                quantizer_noise_type="gaussian",
+                softround_temperature=(0.3, 0.1), noise_parameter=(0.25, 0.1),
+                lmbda=self.lmbda, dist_weight=self.dist_weight,
+                betas_latent=(0.9, 0.999), betas_model=(0.95, 0.95),
+                precondition_frequency_model=10,
+            ),
+        ]
+        self.warmup = Warmup([
+            WarmupPhase(candidates=2, training_phase=TrainerPhase(
+                lr=self.start_lr, max_itr=600, freq_valid=600, patience=100000,
+                schedule_lr=False, softround_temperature=(0.3, 0.3),
+                noise_parameter=(2.0, 2.0), quantizer_noise_type="kumaraswamy",
+                quantizer_type="softround", lmbda=self.lmbda,
+                dist_weight={"mse": 1.0}, betas_latent=(0.725, 0.97),
+                betas_model=(0.95, 0.95), precondition_frequency_model=1,
+            )),
+        ])
+        self.motion_pretrain_phase = [
+            TrainerPhase(
+                lr=1e-2, max_itr=self.itr_motion_pretrain,
+                patience=self.itr_motion_pretrain, schedule_lr=False,
+                softround_temperature=(0.3, 0.3), noise_parameter=(2.0, 2.0),
+                quantizer_noise_type="kumaraswamy", quantizer_type="softround",
+                lmbda=20 * self.lmbda, dist_weight={"mse": 1.0},
+                betas_latent=(0.9, 0.999), betas_model=(0.95, 0.95),
+                precondition_frequency_model=10,
+            ),
+        ]
+
+
 class PresetDebug(Preset):
     """Very fast schedule, for testing the plumbing only.
 
@@ -158,6 +198,14 @@ class PresetDebug(Preset):
             WarmupPhase(candidates=3, training_phase=TrainerPhase(max_itr=10, lmbda=self.lmbda)),
             WarmupPhase(candidates=2, training_phase=TrainerPhase(max_itr=10, lmbda=self.lmbda)),
         ])
+        self.motion_pretrain_phase = [
+            TrainerPhase(
+                lr=self.start_lr, max_itr=50, patience=50, schedule_lr=True,
+                quantizer_type="softround", quantizer_noise_type="gaussian",
+                softround_temperature=(0.3, 0.1), noise_parameter=(0.25, 0.1),
+                lmbda=self.lmbda, dist_weight=self.dist_weight,
+            ),
+        ]
 
 
 class PresetMeasureSpeed(Preset):
@@ -184,6 +232,7 @@ class PresetMeasureSpeed(Preset):
 
 AVAILABLE_PRESETS = {
     "intra": PresetIntra,
+    "inter": PresetInter,
     "debug": PresetDebug,
     "measure_speed": PresetMeasureSpeed,
 }

@@ -177,23 +177,25 @@ class PhaseFns:
             self._wd = (one, make_wasserstein_fn(one))
         return self._wd[1]
 
-    def loss(self, leaves: list, noise, temp, target, lmbda) -> LossOutput:
+    def loss(self, leaves: list, noise, temp, target, lmbda, refs=None) -> LossOutput:
         out = frame_encoder_forward(
-            tree_unflatten(self.like, leaves), self.fcfg, noise=noise,
+            tree_unflatten(self.like, leaves), self.fcfg, reference_frames=refs, noise=noise,
             quantizer_type=self.quantizer_type, soft_round_temperature=temp,
             training=True, cr=self.cr)
         return loss_function(out.decoded_image, out.rate, target, self.dist_weight, lmbda,
                              wasserstein_fn=self.wasserstein_fn(target))
 
-    def grads(self, leaves: list, noise, temp, target, lmbda) -> list:
+    def grads(self, leaves: list, noise, temp, target, lmbda, refs=None) -> list:
         """d(sum of the images' losses)/d(leaf) per trainable leaf (zeros
         for a leaf the loss does not reach), None for frozen leaves. The
-        images are independent, so each slot gets its own gradient."""
+        images are independent, so each slot gets its own gradient. `refs`:
+        a P/B frame's references, one [G, 3, H, W] tensor each (every
+        method takes them)."""
         with torch.enable_grad():
             req = [x.detach().requires_grad_(grp != FROZEN)
                    for x, grp in zip(leaves, self.groups)]
             train = [x for x in req if x.requires_grad]
-            lo = self.loss(req, noise, temp, target, lmbda)
+            lo = self.loss(req, noise, temp, target, lmbda, refs)
             gs = iter(torch.autograd.grad(lo.loss.sum(), train, allow_unused=True))
         out = []
         for x in req:
@@ -205,8 +207,8 @@ class PhaseFns:
         return out
 
     def step(self, leaves: list, states: list, noise, temp, lr: torch.Tensor,
-             target, lmbda, refresh: bool) -> tuple[list, list]:
-        grads = self.grads(leaves, noise, temp, target, lmbda)
+             target, lmbda, refs=None, *, refresh: bool) -> tuple[list, list]:
+        grads = self.grads(leaves, noise, temp, target, lmbda, refs)
         # Global-norm clip of the WEIGHT group at 0.1, per image
         # (reference train.py:228).
         sq = sum(torch.square(g).flatten(1).sum(dim=1)
@@ -229,21 +231,21 @@ class PhaseFns:
         return new_p, new_s
 
     def window(self, leaves: list, states: list, draw, n_steps: int, temp,
-               lr: torch.Tensor, target, lmbda) -> tuple[list, list]:
+               lr: torch.Tensor, target, lmbda, refs=None) -> tuple[list, list]:
         """n_steps training steps (train.py:train_window of the JAX
         package): (pf - 1) plain steps then one eigenbasis-refresh step,
         from the window's start; a remainder of fewer than pf steps has no
         refresh. draw() gives each step's noise."""
         for s in range(n_steps):
-            leaves, states = self.step(leaves, states, draw(), temp, lr, target, lmbda,
+            leaves, states = self.step(leaves, states, draw(), temp, lr, target, lmbda, refs,
                                        refresh=(s + 1) % self.pf == 0)
         return leaves, states
 
-    def eval(self, leaves: list, target, lmbda) -> LossOutput:
+    def eval(self, leaves: list, target, lmbda, refs=None) -> LossOutput:
         """The decoder's view (hardround latents, bitdepth-rounded image)."""
         with torch.no_grad():
             out = frame_encoder_forward(tree_unflatten(self.like, leaves), self.fcfg,
-                                        training=False, cr=self.cr)
+                                        reference_frames=refs, training=False, cr=self.cr)
             return loss_function(out.decoded_image, out.rate, target, self.dist_weight,
                                  lmbda, wasserstein_fn=self.wasserstein_fn(target))
 
@@ -275,14 +277,14 @@ def logs_from_loss(lo: LossOutput, i: int = 0) -> EncoderLogs:
 
 
 def test(params: dict, fcfg: FrameConfig, target, cr: Optional[dict] = None,
-         dist_weight: Optional[Dict[str, float]] = None, lmbda: float = 1e-3
-         ) -> EncoderLogs:
+         dist_weight: Optional[Dict[str, float]] = None, lmbda: float = 1e-3,
+         refs: Optional[list] = None) -> EncoderLogs:
     """Eval logs of one image's params (no batch axis) against its
-    [1, C, H, W] target."""
+    [1, C, H, W] target (and a P/B frame's [1, 3, H, W] references)."""
     fns = PhaseFns(fcfg, params, "none", "hardround", dist_weight or {"mse": 1.0},
                    (0.95, 0.95), (0.9, 0.999), 10, cr=cr)
     leaves = [x[None] for x in tree_leaves(params)]
-    return logs_from_loss(fns.eval(leaves, target, lmbda))
+    return logs_from_loss(fns.eval(leaves, target, lmbda, refs))
 
 
 def stack_trees(trees: list):
@@ -296,11 +298,12 @@ def index_tree(tree, i: int):
 
 
 def train(params: dict, fcfg: FrameConfig, target, phase: TrainerPhase, *,
-          noise_source, cr: Optional[dict] = None,
+          noise_source, cr: Optional[dict] = None, refs: Optional[list] = None,
           monitor: Optional[EncoderMonitor] = None, verbose: bool = False) -> dict:
     """Run one training phase of one image; returns the best parameters
     found (tensors, no batch axis). `params`: one image's tensors on the
-    device; `target`: its [1, C, H, W] (or planes); `noise_source` as in
+    device; `target`: its [1, C, H, W] (or planes); `refs`: a P/B frame's
+    [1, 3, H, W] references; `noise_source` as in
     parallel/encode_batch.py:_batched_phase.
 
     The port of coolchic_tpu/train/train.py:train (less the spatial mesh):
@@ -328,10 +331,10 @@ def train(params: dict, fcfg: FrameConfig, target, phase: TrainerPhase, *,
     # (one extra gradient; the phase's first step then takes a fresh one).
     temp0 = linear_schedule(phase.softround_temperature, 0, phase.max_itr)
     noise0 = linear_schedule(phase.noise_parameter, 0, phase.max_itr)
-    grads = fns.grads(leaves, draw("seed", noise0)(), temp0, target, lmbda)
+    grads = fns.grads(leaves, draw("seed", noise0)(), temp0, target, lmbda, refs)
     opt = seed_opt_state(opt, grads, fns.groups, fns.hp_weight)
 
-    best = logs_from_loss(fns.eval(leaves, target, lmbda))
+    best = logs_from_loss(fns.eval(leaves, target, lmbda, refs))
     initial, best_leaves = best, leaves
 
     n_windows = math.ceil(phase.max_itr / phase.freq_valid)
@@ -352,11 +355,11 @@ def train(params: dict, fcfg: FrameConfig, target, phase: TrainerPhase, *,
         n_steps = min(phase.freq_valid, phase.max_itr - cnt)
         leaves, opt = fns.window(leaves, opt, draw("step", noise), n_steps, temp,
                                  torch.tensor(lr, dtype=torch.float32, device=dev),
-                                 target, lmbda)
+                                 target, lmbda, refs)
         cnt += n_steps
         monitor.iterations_counter += n_steps
 
-        logs = logs_from_loss(fns.eval(leaves, target, lmbda))
+        logs = logs_from_loss(fns.eval(leaves, target, lmbda, refs))
         if logs.loss < best.loss:
             best, best_leaves = logs, leaves
             windows_since_record = 0

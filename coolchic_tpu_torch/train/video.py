@@ -1,27 +1,37 @@
-"""Per-frame encode pipeline, I frames: warm-up tournament -> training phases
--> NN quantization -> RDOQ -> bitstream write -> decoded-frame save and the
-detailed logs.
+"""Per-frame encode pipeline for I, P and B frames:
 
-The port of the I path of coolchic_tpu/train/video.py (encode_one_frame,
-_prep_frame, _quantize_frame, _finalize_frame). Every stage runs on the
-requested device; the host does the SOAP eigh seeding, the NN quantization
-and RDOQ bookkeeping and the range coding, as in the JAX package. The main
-phases run the batched window at n = 1, or, for a config with common
-randomness (--tune wasserstein), the serial trainer train.train(), as the
-JAX package chooses.
+  1. load the original frame and, for P/B, its DECODED references (from
+     the workdir);
+  2. [P/B] global translation search, flow-guided motion pretraining
+     (pyramidal LK standing in for RAFT, models/flow.py);
+  3. warm-up tournament (the odd inter candidates preloaded with the
+     pretrained motion decoder);
+  4. training phases, NN quantization, RDOQ, bitstream write;
+  5. save the decoded frame (later frames reference it) and the logs.
+
+The port of coolchic_tpu/train/video.py (encode_one_frame, _prep_frame,
+guided_motion_pretraining, _rdoq_frame_ctx, _quantize_frame,
+_finalize_frame). Every stage runs on the requested device; the host does
+the global translation search (numpy, as the JAX package), the SOAP eigh
+seeding, the NN quantization and RDOQ bookkeeping and the range coding. The
+main phases run the batched window at n = 1 (the references ride its batch
+axis), or, for a config with common randomness (--tune wasserstein), the
+serial trainer train.train(), as the JAX package chooses.
 
 Noise and initial weights come from torch.Generators seeded from (seed,
 display order, phase index), the role of _frame_phase_key in the JAX
 package; the streams differ from JAX's PRNG, so the port's encode of an
 image is not the JAX encode's bit for bit, only its equal in RD terms.
 
-Not ported yet: P/B frames, the spatial mesh.
+Not ported yet: the GOP loop (encode_video, frame_cfg_args,
+_frame_preset), the wave encode (encode_wave_group), the spatial mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -32,13 +42,17 @@ from coolchic_tpu_torch.core.device import resolve_device
 from coolchic_tpu_torch.io.framedata import FrameData
 from coolchic_tpu_torch.io.io import load_frame_data_from_file, save_frame_data_to_file
 from coolchic_tpu_torch.io.yuv import convert_420_to_444
+from coolchic_tpu_torch.models.coolchic import coolchic_forward
+from coolchic_tpu_torch.models.flow import estimate_flow
 from coolchic_tpu_torch.models.frame import (
     FrameConfig,
     frame_cr_grids,
     frame_encoder_forward,
     frame_encoder_init,
 )
+from coolchic_tpu_torch.models.globalmotion import get_global_translation
 from coolchic_tpu_torch.models.params import tree_from_numpy, tree_to_numpy
+from coolchic_tpu_torch.models.warp import shift_references, warp_fn
 from coolchic_tpu_torch.nnquant.quantize import quantize_coolchic
 from coolchic_tpu_torch.nnquant.rdoq import rdoq_coolchic
 from coolchic_tpu_torch.parallel.encode_batch import _batched_phase
@@ -62,7 +76,7 @@ from coolchic_tpu_torch.train.train import (
 from coolchic_tpu_torch.train.warmup import warmup_batched
 from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder, save_frame_encoder
 from coolchic_tpu_torch.utils.codingstructure import CodingStructure, Frame
-from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args
+from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args, substitute_x_channels
 from coolchic_tpu_torch.utils.results import write_frame_results
 
 # Pixel x trial budget of one batched NN-quantization eval.
@@ -98,7 +112,8 @@ def _dense(frame: FrameData) -> np.ndarray:
 def _frame_phase_generator(seed: int, display_order: int, phase_idx: int,
                            device: torch.device) -> torch.Generator:
     """Per-(frame, phase) generator, independent of batch composition: the
-    main phases use phase_idx >= 0, the warm-up -1, the candidate init -2."""
+    main phases use phase_idx >= 0, the warm-up -1, the candidate init -2,
+    the motion pretraining's init -3 and its training noise -4."""
     g = torch.Generator(device=device)
     g.manual_seed((seed + 1000 * display_order) * 100_003 + 7919 + phase_idx)
     return g
@@ -106,16 +121,13 @@ def _frame_phase_generator(seed: int, display_order: int, phase_idx: int,
 
 def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path: str,
                      workdir: str, preset: Preset, cfg_args: dict[str, dict],
-                     seed: int = 0, verbose: bool = True, rdoq: bool = True,
-                     tune: str = "mse", profile: str = "ref",
+                     warp_filter_size: int = 8, seed: int = 0, verbose: bool = True,
+                     rdoq: bool = True, tune: str = "mse", profile: str = "ref",
                      device: str | torch.device = "cuda") -> dict:
-    """Encode one I frame on `device`; returns {payload bytes, logs,
-    detailed logs, ...}. The decoded frame and the logs are written to the
-    workdir."""
+    """Encode one I, P or B frame on `device`; returns {payload bytes,
+    logs, detailed logs, ...}. A P/B frame's decoded references are read
+    from the workdir; the decoded frame and the logs are written to it."""
     dev = resolve_device(device)
-    if frame.frame_type != "I":
-        raise NotImplementedError(f"{frame.frame_type} frames are not encoded by "
-                                  "the port yet (I only)")
     fdata = load_frame_data_from_file(video_path, frame.display_order + frame.frame_offset)
     frame.data = fdata
 
@@ -128,15 +140,16 @@ def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path
                                fdata, workdir, video_path, verbose, profile=profile,
                                lmbda=preset.lmbda, device=dev)
 
-    prep = _prep_frame(frame, fdata, preset, cfg_args, seed, tune, dev)
+    prep = _prep_frame(frame, fdata, workdir, video_path, preset, cfg_args,
+                       warp_filter_size, seed, tune, dev, verbose)
     fcfg, target, monitor = prep["fcfg"], prep["target"], prep["monitor"]
-    candidates, cr = prep["candidates"], prep["cr"]
+    candidates, cr, refs = prep["candidates"], prep["cr"], prep["refs"]
 
     if preset.warmup.phases:
         noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, -1, dev))
         with monitor.timed("warmup"):
             params = warmup_batched(candidates, preset, fcfg, target, noise_source=noise,
-                                    cr=cr, monitor=monitor, verbose=verbose)
+                                    cr=cr, refs=refs, monitor=monitor, verbose=verbose)
     else:
         params = candidates[0]
 
@@ -149,7 +162,7 @@ def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path
             noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, idx, dev))
             with monitor.timed(f"train_phase_{idx}"):
                 params = train(params, fcfg, target, phase, noise_source=noise, cr=cr,
-                               monitor=monitor, verbose=verbose)
+                               refs=refs, monitor=monitor, verbose=verbose)
         params = tree_to_numpy(params)
     else:
         params_b = stack_trees([params])
@@ -157,11 +170,11 @@ def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path
             noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, idx, dev))
             with monitor.timed(f"train_phase_{idx}"):
                 params_b, _ = _batched_phase(params_b, target, fcfg, phase, monitor,
-                                             verbose, noise_source=noise)
+                                             verbose, noise_source=noise, refs_b=refs)
         params = tree_to_numpy(index_tree(params_b, 0))
 
     params, nn_side_info = _quantize_frame(params, fcfg, preset, target, fdata, monitor,
-                                           verbose, dev, rdoq=rdoq, cr=cr)
+                                           verbose, dev, rdoq=rdoq, cr=cr, refs=refs)
 
     if verbose:
         print(f"frame {frame.frame_type}{frame.display_order}: "
@@ -173,39 +186,116 @@ def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path
                            lmbda=preset.lmbda, monitor=monitor, device=dev)
 
 
-def _prep_frame(frame: Frame, fdata: FrameData, preset: Preset,
-                cfg_args: dict[str, dict], seed: int, tune: str,
-                device: torch.device) -> dict:
-    """Configs, target and warm-up candidates of one I frame."""
+def _load_refs(index_references, fdata: FrameData, workdir: str, video_path: str,
+               device: torch.device) -> list:
+    """The decoded references of a P/B frame from the workdir, dense (444
+    for yuv420), one [1, 3, H, W] tensor each on `device`."""
+    return [torch.as_tensor(np.asarray(_dense(load_frame_data_from_file(os.path.join(
+        workdir, _decoded_name(i, fdata, video_path)))), np.float32), device=device)
+        for i in index_references]
+
+
+def guided_motion_pretraining(target_flows: torch.Tensor, motion_cfg, preset: Preset,
+                              seed: int, display_order: int, device: torch.device,
+                              monitor: EncoderMonitor, verbose: bool = False) -> dict:
+    """Overfit the motion decoder to imitate the estimated flow(s)
+    [1, 2 | 4, H, W] as a dense 'flow image' (reference video.py:399-469):
+    an I-type "flow" frame at encoder gain 16, trained by the serial
+    trainer. Returns the motion cool-chic's params (tensors, no batch
+    axis)."""
+    n_out = target_flows.shape[1]
+    layers = substitute_x_channels(list(motion_cfg.layers_synthesis), n_out)
+    pre_cfg = dataclasses.replace(motion_cfg, layers_synthesis=tuple(layers), encoder_gain=16)
+    fcfg = FrameConfig(coolchic_cfg={"residue": pre_cfg}, frame_type="I",
+                       frame_data_type="flow", bitdepth=8)
+    params = frame_encoder_init(_frame_phase_generator(seed, display_order, -3, device),
+                                fcfg, device=device)
+    noise = TorchNoise(_frame_phase_generator(seed, display_order, -4, device))
+    for phase in preset.motion_pretrain_phase:
+        params = train(params, fcfg, target_flows, phase, noise_source=noise,
+                       monitor=monitor, verbose=verbose)
+    return params["residue"]
+
+
+def _prep_frame(frame: Frame, fdata: FrameData, workdir: str, video_path: str,
+                preset: Preset, cfg_args: dict[str, dict], warp_filter_size: int,
+                seed: int, tune: str, device: torch.device, verbose: bool = False) -> dict:
+    """Configs, target, references and warm-up candidates of one frame; for
+    P/B the global translation search and the motion pretraining."""
     h, w = fdata.img_size
-    # λ-adaptive encoder gain for intra (reference video.py:80-91).
-    gain = intra_gain_for_lmbda(preset.lmbda)
-    cfgs = {name: dataclasses.replace(
-        coolchic_config_from_args(args, (h, w), coolchic_name=name,
-                                  frame_type=frame.frame_type, tune=tune),
-        encoder_gain=gain) for name, args in cfg_args.items()}
+    monitor = EncoderMonitor(device=device)
+    cfgs = {name: coolchic_config_from_args(args, (h, w), coolchic_name=name,
+                                            frame_type=frame.frame_type, tune=tune)
+            for name, args in cfg_args.items()
+            if not (frame.frame_type == "I" and name == "motion")}
+    if frame.frame_type == "I":
+        # λ-adaptive encoder gain for intra (reference video.py:80-91).
+        gain = intra_gain_for_lmbda(preset.lmbda)
+        cfgs = {k: dataclasses.replace(v, encoder_gain=gain) for k, v in cfgs.items()}
     fcfg = FrameConfig(
         coolchic_cfg=cfgs, frame_type=frame.frame_type,
         frame_data_type=fdata.frame_data_type, bitdepth=fdata.bitdepth,
         index_references=tuple(frame.index_references),
-        frame_display_index=frame.display_order)
+        frame_display_index=frame.display_order, warp_filter_size=warp_filter_size)
 
-    stats = img_min_max(fdata)
+    refs = None
+    global_flows = [np.zeros(2, np.float32), np.zeros(2, np.float32)]
+    pretrained_motion = None
+    if frame.frame_type != "I":
+        refs = _load_refs(frame.index_references, fdata, workdir, video_path, device)
+        target_dense = _dense(fdata)
+        with monitor.timed("global_translation"):
+            shifted, flows = get_global_translation(
+                target_dense, [r.cpu().numpy() for r in refs])
+        global_flows[:len(flows)] = flows
+        if verbose:
+            print(f"global translation {[f.tolist() for f in flows]} "
+                  f"({monitor.phase_time_sec['global_translation']:.1f}s)", flush=True)
+        with monitor.timed("flow"):
+            tgt_dev = torch.as_tensor(target_dense, device=device)
+            est = torch.cat([estimate_flow(tgt_dev, torch.as_tensor(sr, device=device))
+                             for sr in shifted], dim=1)
+        if preset.motion_pretrain_phase and preset.motion_pretrain_phase[0].max_itr > 0:
+            with monitor.timed("motion_pretrain"):
+                pretrained_motion = guided_motion_pretraining(
+                    est, cfgs["motion"], preset, seed, frame.display_order, device, monitor)
+            # Rescale the latents if the final motion gain differs from 16.
+            ratio = cfgs["motion"].encoder_gain / 16.0
+            if ratio != 1.0:
+                pretrained_motion = {**pretrained_motion, "latents": [
+                    lat * ratio for lat in pretrained_motion["latents"]]}
+            if verbose:
+                print(f"motion pretraining done "
+                      f"({monitor.phase_time_sec['motion_pretrain']:.1f}s)", flush=True)
+
+    # Stats-based output transform for intra frames only (reference
+    # video.py:84-101).
+    stats = img_min_max(fdata) if frame.frame_type == "I" else None
     n_candidates = preset.warmup.phases[0].candidates if preset.warmup.phases else 1
     gen = _frame_phase_generator(seed, frame.display_order, -2, device)
-    candidates = [frame_encoder_init(gen, fcfg, stats, device=device)
-                  for _ in range(n_candidates)]
+    candidates = []
+    for i in range(n_candidates):
+        p = frame_encoder_init(gen, fcfg, stats, device=device)
+        p["global_flow_1"] = torch.as_tensor(global_flows[0], device=device)
+        p["global_flow_2"] = torch.as_tensor(global_flows[1], device=device)
+        # odd candidates start from the pretrained motion (reference
+        # video.py:179-212); with no tournament the single candidate takes it
+        if pretrained_motion is not None and (i % 2 or n_candidates == 1):
+            p["motion"] = pretrained_motion
+        candidates.append(p)
     return {"fcfg": fcfg, "target": _target_from_frame(fdata, device),
-            "cr": frame_cr_grids(fcfg, device),
-            "monitor": EncoderMonitor(device=device), "candidates": candidates}
+            "cr": frame_cr_grids(fcfg, device), "refs": refs,
+            "monitor": monitor, "candidates": candidates}
 
 
 def _grid_scorer(params: dict, fcfg: FrameConfig, cc_name: str, target, lmbda: float,
-                 dist_weight: dict, device: torch.device, cr: Optional[dict] = None):
+                 dist_weight: dict, device: torch.device, cr: Optional[dict] = None,
+                 refs: Optional[list] = None):
     """score(trials) for quantize_coolchic: the frame's eval loss (decoder's
     view, no NN rate) with cc `cc_name` replaced by each trial, the trials
-    run as the batch axis in chunks of the _EVAL_BATCH_PX budget. Leaves
-    shared by every trial go to the device once and are broadcast."""
+    run as the batch axis in chunks of the _EVAL_BATCH_PX budget (a P/B
+    frame's references broadcast over them). Leaves shared by every trial
+    go to the device once and are broadcast."""
     fns = PhaseFns(fcfg, params, "none", "hardround", dist_weight,
                    (0.95, 0.95), (0.9, 0.999), 10, cr=cr)
     h, w = fcfg.cc_cfgs["residue"].img_size
@@ -231,36 +321,65 @@ def _grid_scorer(params: dict, fcfg: FrameConfig, cc_name: str, target, lmbda: f
                     leaves.append(torch.as_tensor(np.stack(xs), device=device))
             tgt = (tree_map(lambda t: t.expand(g, *t.shape[1:]), target)
                    if isinstance(target, dict) else target.expand(g, *target.shape[1:]))
-            losses.append(fns.eval(leaves, tgt, lmbda).loss)
+            refs_g = None if refs is None else [r.expand(g, *r.shape[1:]) for r in refs]
+            losses.append(fns.eval(leaves, tgt, lmbda, refs_g).loss)
         return torch.cat(losses).cpu().numpy()
 
     return score
 
 
+def _rdoq_frame_ctx(params: dict, fcfg: FrameConfig, cc_name: str, refs: list,
+                    cr: Optional[dict], device: torch.device) -> dict:
+    """Fixed frame-level activations for RDOQ's P/B reconstruction scorers
+    (nnquant/rdoq.py: rdoq_coolchic's frame_ctx). The other cool-chic is
+    evaluated as it stands at this point of the quantization walk (float
+    if not yet quantized, as the NN-quantization grid search sees it).
+    `params`: numpy, no batch axis; `refs`: [1, 3, H, W] tensors."""
+    like = tree_map(lambda x: x[None], tree_from_numpy(params, device))
+    shifted = shift_references(refs, [like[f"global_flow_{i + 1}"]
+                                      for i in range(len(refs))])
+    other = "motion" if cc_name == "residue" else "residue"
+    with torch.no_grad():
+        raw = coolchic_forward(like[other], fcfg.cc_cfgs[other], training=False,
+                               cr=None if cr is None else cr.get(other)).raw_out
+        if cc_name == "residue":
+            return {"role": "residue", "warps": tuple(
+                warp_fn(r, raw[:, 2 * i:2 * i + 2], fcfg.warp_filter_size, training=False)
+                for i, r in enumerate(shifted))}
+    return {"role": "motion", "other_raw": raw, "refs": tuple(shifted),
+            "warp_filter_size": fcfg.warp_filter_size}
+
+
 def _quantize_frame(params: dict, fcfg: FrameConfig, preset: Preset, target,
                     fdata: FrameData, monitor: EncoderMonitor, verbose: bool,
                     device: torch.device, *, rdoq: bool = False,
-                    cr: Optional[dict] = None) -> tuple[dict, dict]:
-    """NN quantization (+ RDOQ) of every cool-chic in `params` (numpy);
-    returns the quantized params and the per-cc (q_shift, expgol) side
-    info. RDOQ refines the residue's synthesis and upsampling against the
-    dense frame (444 for yuv420) and updates expgol in place."""
+                    cr: Optional[dict] = None, refs: Optional[list] = None
+                    ) -> tuple[dict, dict]:
+    """NN quantization (+ RDOQ) of every cool-chic in `params` (numpy), in
+    order (residue, then motion, which sees the quantized residue); returns
+    the quantized params and the per-cc (q_shift, expgol) side info. RDOQ
+    refines synthesis and upsampling against the dense frame (444 for
+    yuv420): the I residue alone, a P/B cool-chic with the other's
+    contribution fixed (_rdoq_frame_ctx). It updates expgol in place."""
     phase0 = preset.training_phases[-1]
     nn_side_info = {}
     for cc_name in fcfg.cc_cfgs:
         score = _grid_scorer(params, fcfg, cc_name, target, phase0.lmbda,
-                             phase0.dist_weight, device, cr=cr)
+                             phase0.dist_weight, device, cr=cr, refs=refs)
         with monitor.timed("nn_quantize"):
             q_params, q_shift, expgol, _ = quantize_coolchic(
                 params[cc_name], fcfg.cc_cfgs[cc_name], score, phase0.lmbda,
                 fdata.n_pixels, verbose=verbose)
         if rdoq:
-            with monitor.timed("rdoq"):
+            inter = fcfg.frame_type != "I"
+            fctx = _rdoq_frame_ctx(params, fcfg, cc_name, refs, cr, device) if inter else None
+            with monitor.timed("rdoq" if cc_name == "residue" else f"rdoq_{cc_name}"):
                 q_params = rdoq_coolchic(
                     q_params, fcfg.cc_cfgs[cc_name], q_shift, expgol, phase0.lmbda,
-                    target=_dense(fdata) if cc_name == "residue" else None,
+                    target=_dense(fdata) if cc_name == "residue" or inter else None,
                     frame_type=fcfg.frame_type, frame_data_type=fdata.frame_data_type,
-                    bitdepth=fdata.bitdepth, verbose=verbose, device=device)
+                    bitdepth=fdata.bitdepth, frame_ctx=fctx, verbose=verbose,
+                    device=device)
         params = {**params, cc_name: q_params}
         nn_side_info[cc_name] = (q_shift, expgol)
     return params, nn_side_info
@@ -280,8 +399,10 @@ def _finalize_frame(frame: Frame, coding_structure: CodingStructure, params: dic
     n_pixels = fdata.n_pixels
     params_dev = tree_from_numpy(params, device)
     cr = frame_cr_grids(fcfg, device)
+    refs = (None if fcfg.frame_type == "I"
+            else _load_refs(fcfg.index_references, fdata, workdir, video_path, device))
 
-    logs = test(params_dev, fcfg, target, cr=cr)
+    logs = test(params_dev, fcfg, target, cr=cr, refs=refs)
 
     with monitor.timed("bitstream_write"):
         payload = encode_frame(params, fcfg, coding_structure, nn_side_info,
@@ -289,7 +410,7 @@ def _finalize_frame(frame: Frame, coding_structure: CodingStructure, params: dic
 
     with torch.no_grad():
         out = frame_encoder_forward(tree_map(lambda x: x[None], params_dev), fcfg,
-                                    training=False, cr=cr)
+                                    reference_frames=refs, training=False, cr=cr)
     if fdata.frame_data_type == "yuv420":
         dec_data = {k: v.cpu().numpy() for k, v in out.decoded_image.items()}
     else:
@@ -306,10 +427,11 @@ def _finalize_frame(frame: Frame, coding_structure: CodingStructure, params: dic
         extra={"frame_type": fcfg.frame_type, "n_bytes": len(payload)})
 
     # Detailed per-frame logs (reference FrameEncoderLogs, training/test.py):
-    # per-grid bpp, per-module NN bpp, MAC/px -- one wide TSV row next to the
-    # summary TSV, plus a column-identical reference-schema results TSV.
+    # per-grid bpp, per-module NN bpp, MAC/px, alpha/beta stats, prediction
+    # dB -- one wide TSV row next to the summary TSV, plus a column-identical
+    # reference-schema results TSV.
     detailed = detailed_test(
-        params, fcfg, target, cr=cr, lmbda=lmbda, nn_side_info=nn_side_info,
+        params, fcfg, target, refs=refs, cr=cr, lmbda=lmbda, nn_side_info=nn_side_info,
         encoding_time_second=monitor.total_training_time_sec,
         encoding_iterations_cnt=monitor.iterations_counter,
         display_order=frame.display_order, coding_order=frame.coding_order,

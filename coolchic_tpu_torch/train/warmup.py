@@ -31,7 +31,8 @@ from coolchic_tpu_torch.train.train import EncoderMonitor, index_tree, stack_tre
 
 def _train_phase_batched(stacked: dict, ph: TrainerPhase, fcfg: FrameConfig, target,
                          noise_source, monitor: EncoderMonitor,
-                         cr: Optional[dict] = None) -> tuple[dict, torch.Tensor]:
+                         cr: Optional[dict] = None, refs: Optional[list] = None
+                         ) -> tuple[dict, torch.Tensor]:
     """One warm-up phase for a stack of candidates; returns
     (best_params_stacked, best_losses [n]). As in the JAX package, the
     lr, temperature and noise hold their starting values and the SOAP
@@ -43,8 +44,9 @@ def _train_phase_batched(stacked: dict, ph: TrainerPhase, fcfg: FrameConfig, tar
     n = stacked["global_flow_1"].shape[0]
     targets = tree_map(lambda t: t.expand(n, *t.shape[1:]), target) \
         if isinstance(target, dict) else target.expand(n, *target.shape[1:])
+    refs_b = None if refs is None else [r.expand(n, *r.shape[1:]) for r in refs]
     return _batched_phase(stacked, targets, fcfg, held, monitor, False,
-                          noise_source=noise_source, seed_soap=False, cr=cr)
+                          noise_source=noise_source, seed_soap=False, cr=cr, refs_b=refs_b)
 
 
 def candidate_chunk_size(n_pixels: int, n_candidates: int) -> int:
@@ -57,14 +59,15 @@ def candidate_chunk_size(n_pixels: int, n_candidates: int) -> int:
 
 
 def warmup_batched(candidates: list[dict], preset: Preset, fcfg: FrameConfig, target, *,
-                   noise_source, cr: Optional[dict] = None,
+                   noise_source, cr: Optional[dict] = None, refs: Optional[list] = None,
                    monitor: Optional[EncoderMonitor] = None,
                    verbose: bool = False) -> dict:
     """All surviving candidates advance together through each warm-up phase
     (chunked to the activation-memory budget); returns the winner's params
-    (no batch axis). `target`: one image's [1, C, H, W] (or planes); `cr`:
-    the frame's common-randomness grids, carried into every phase as the
-    JAX warm-up carries them."""
+    (no batch axis). `target`: one image's [1, C, H, W] (or planes); `refs`:
+    a P/B frame's [1, 3, H, W] references, broadcast over the candidates as
+    the target is; `cr`: the frame's common-randomness grids, carried into
+    every phase as the JAX warm-up carries them."""
     monitor = monitor or EncoderMonitor()
     n = len(candidates)
     stacked = stack_trees(candidates)
@@ -83,7 +86,7 @@ def warmup_batched(candidates: list[dict], preset: Preset, fcfg: FrameConfig, ta
             c1 = min(c0 + chunk, n)
             sub = tree_map(lambda x: x[c0:c1], stacked)
             bp, bl = _train_phase_batched(sub, ph, fcfg, target, noise_source, monitor,
-                                          cr=cr)
+                                          cr=cr, refs=refs)
             parts_params.append(bp)
             parts_loss.append(bl)
         stacked = tree_map(lambda *xs: torch.cat(xs), *parts_params)

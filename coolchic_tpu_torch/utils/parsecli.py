@@ -1,4 +1,4 @@
-"""Architecture DSL parsing + the intra decoder operating points.
+"""Architecture DSL parsing + the decoder operating points.
 
 DSLs (reference coolchic/utils/parsecli.py, coolchic_tpu/utils/parsecli.py):
   - synthesis: "48-1-linear-relu,3-1-linear-none,.../stabiliser"; the literal
@@ -9,8 +9,9 @@ DSLs (reference coolchic/utils/parsecli.py, coolchic_tpu/utils/parsecli.py):
   - ifce resolution: "lo-hi" or "no";
   - frame position DSL for --intra_pos/--p_pos: "0,4-7,-2".
 
-The intra operating points (lop/mop/hop/vhop) are read from the repo's
-cfg/dec/intra/*.cfg files.
+The operating points are read from the repo's cfg/dec/*/*.cfg files:
+intra (lop/mop/hop/vhop), residue of P/B frames (vlop/lop/mop/hop) and
+motion (lop/mop).
 """
 
 from __future__ import annotations
@@ -97,29 +98,53 @@ def substitute_x_channels(layers: list[str], out_ft: int) -> list[str]:
     return [lay.replace("X", str(out_ft)) if lay.startswith("X") else lay for lay in layers]
 
 
+def synthesis_out_ft(coolchic_name: str, frame_type: str) -> int:
+    """Output channels: residue I->3, P->4 (+alpha), B->5 (+alpha,beta);
+    motion P->2, B->4 (two flows)."""
+    if coolchic_name == "residue":
+        return {"I": 3, "P": 4, "B": 5}[frame_type]
+    return {"P": 2, "B": 4}[frame_type]
+
+
 @lru_cache(maxsize=None)
-def intra_operating_points() -> Dict[str, Dict[str, str]]:
-    """{name: cfg-style string dict} from cfg/dec/intra/<name>.cfg, keys
-    without the "_residue" suffix."""
+def _operating_points(kind: str, suffix: str) -> Dict[str, Dict[str, str]]:
+    """{name: cfg-style string dict} from cfg/dec/<kind>/<name>.cfg, keys
+    without `suffix`."""
     points = {}
-    for path in sorted(CFG_DIR.glob("intra/*.cfg")):
-        points[path.stem] = {k.removesuffix("_residue"): v
+    for path in sorted(CFG_DIR.glob(f"{kind}/*.cfg")):
+        points[path.stem] = {k.removesuffix(suffix): v
                              for k, v in parse_config_file(str(path)).items()}
     if not points:
-        raise FileNotFoundError(f"no intra operating points under {CFG_DIR}")
+        raise FileNotFoundError(f"no {kind} operating points under {CFG_DIR}")
     return points
+
+
+def intra_operating_points() -> Dict[str, Dict[str, str]]:
+    """The intra decoders, cfg/dec/intra/*.cfg."""
+    return _operating_points("intra", "_residue")
+
+
+def residue_operating_points() -> Dict[str, Dict[str, str]]:
+    """The residue decoders of P/B frames, cfg/dec/residue/*.cfg."""
+    return _operating_points("residue", "_residue")
+
+
+def motion_operating_points() -> Dict[str, Dict[str, str]]:
+    """The motion decoders, cfg/dec/motion/*.cfg (warp_filter_size among
+    the keys)."""
+    return _operating_points("motion", "_motion")
 
 
 def coolchic_config_from_args(cfg_args: Dict[str, str], img_size: Tuple[int, int],
                               coolchic_name: str = "residue", frame_type: str = "I",
                               tune: str = "mse") -> CoolChicConfig:
-    """Build an I-frame residue CoolChicConfig from a cfg-style string dict
-    (an operating point or user overrides)."""
-    if coolchic_name != "residue" or frame_type != "I":
-        raise NotImplementedError("the port encodes I frames only")
+    """Build a CoolChicConfig from a cfg-style string dict (an operating
+    point or user overrides) for the residue or motion cool-chic of an I,
+    P or B frame. The motion decoder's final upsampling is nearest; common
+    randomness (--tune wasserstein) applies to the residue only."""
     n_pixels = img_size[0] * img_size[1]
     layers, stab_synth = parse_synthesis_layers(cfg_args["layers_synthesis"])
-    layers = substitute_x_channels(layers, 3)
+    layers = substitute_x_channels(layers, synthesis_out_ft(coolchic_name, frame_type))
     arm = parse_arm(cfg_args["arm"])
 
     output_feature_ifce = int(cfg_args["output_feature_ifce"])
@@ -137,8 +162,8 @@ def coolchic_config_from_args(cfg_args: Dict[str, str], img_size: Tuple[int, int
         latent_resolution=parse_latent_resolution(cfg_args["latent_resolution"], n_pixels),
         hyperlatent_resolution=parse_hyperlatent_resolution(
             cfg_args["hyperlatent_resolution"], n_pixels),
-        flag_common_randomness=tune == "wasserstein",
+        flag_common_randomness=coolchic_name == "residue" and tune == "wasserstein",
         img_size=img_size,
-        final_upsampling_type="bicubic",
+        final_upsampling_type="nearest" if coolchic_name == "motion" else "bicubic",
         **arm,
     )

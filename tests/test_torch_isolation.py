@@ -39,7 +39,8 @@ def test_port_imports_no_jax():
     assert "coolchic_tpu_torch.bitstream.device_decode" in res["modules"]
     for name in ("cc_encode", "train.video", "train.soap", "parallel.encode_batch",
                  "nnquant.quantize", "bitstream.encode", "nnquant.rdoq", "train.logs",
-                 "train.wasserstein", "utils.complexity"):
+                 "train.wasserstein", "utils.complexity", "models.warp", "models.flow",
+                 "models.globalmotion"):
         assert f"coolchic_tpu_torch.{name}" in res["modules"]
     assert res["leaked"] == []
     assert res["cudnn_tf32"] is False

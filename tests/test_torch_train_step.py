@@ -81,8 +81,9 @@ WARMUP = dict(lmbda=1e-3, max_itr=N_STEPS, freq_valid=N_STEPS)   # debug warm-up
 
 class JaxNoise:
     """The port's noise source fed with JAX's draws: per slot, the key
-    splits of JAX's training step (one per step, one per cool-chic, one per
-    grid), JAX's sample_noise, and the seeding gradient's own keys."""
+    splits of JAX's training step (one per step, then one per cool-chic in
+    turn, one per grid), JAX's sample_noise, and the seeding gradient's own
+    keys."""
 
     def __init__(self, keys, seed_keys=None):
         self.keys = list(keys)
@@ -102,7 +103,8 @@ class JaxNoise:
         for name, cfg in fcfg.cc_cfgs.items():
             per_grid = [[] for _ in cfg.size_per_latent]
             for i, k in enumerate(fwd):
-                _, sub = jax.random.split(k)
+                # frame_encoder_forward: key, sub = split(key) per cool-chic
+                fwd[i], sub = jax.random.split(k)
                 for j, shape in enumerate(cfg.size_per_latent):
                     sub, s = jax.random.split(sub)
                     per_grid[j].append(np.asarray(sample_noise(
