@@ -82,9 +82,23 @@ Phases, each fatal on failure:
      5's bar with its TF32 control; ms per P and per B training step; one
      probe of the residue tile scorer and of the motion full scorer, P and
      B, card against CPU; RDOQ of a `--no_rdoq` P frame never worsens its
-     bitstream objective.
+     bitstream objective;
+  9. the batched encode and a GOP wave: (a) phase 3's 8 decoded frames
+     through encode_images_batched (hop, lambda 1e-3, debug recipe, `tpu`,
+     no RDOQ), the 8 files batch decoded (2 kernel launches, every grid
+     kernel == host C++, each decoder PSNR within 0.3 dB of the encoder's),
+     ms per training step at G = 8 beside phase 5's n = 1 step, images/s,
+     seconds per stage, peak memory; (b) phase 8's clip made 5 frames long,
+     I0 resumed from phase 8's checkpoint, P4 and B2 by encode_one_frame,
+     (B1, B3) as one encode_wave_group (debug recipe, `tpu`, no RDOQ),
+     decode_video of the 5-frame file (10 kernel launches, every grid
+     kernel == host C++, each frame within phase 8's bars against the
+     encoder's saved frame), ms per step of the G = 2 wave beside phase 8's
+     B step, slot 0's first window against the frame stepping alone
+     (carried step by step, within 5e-2 * lr), peak memory.
 
-Prints the ablation line, the encode, RDOQ, Wasserstein and video lines, a
+Prints the ablation line, the encode, RDOQ, Wasserstein, video, batched
+encode and wave lines, a
 {"kernels": [...]} line (launches: the default CLI's, phase 6c; every
 path's in launches_by_path), then the card line, and ends with
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -313,6 +327,39 @@ def grad_errors(params, grads, ref):
     return worst_l2, worst_max
 
 
+def profile_steps(tag: str, step, n: int = 3) -> dict:
+    """What the card does in a training step: kernels and their summed
+    device time over n steps (torch.profiler), against the steps' wall
+    time; printed under `tag`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0) / n
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    n_kernels = sum(len(v) for v in kernels.values()) / n
+    busy_ms = sum(sum(v) for v in kernels.values()) / n
+    row = {"kernels_per_step": n_kernels, "kernel_ms_per_step": busy_ms,
+           "wall_ms_per_step_profiled": wall_ms}
+    if n_kernels:
+        top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:5]
+        row["top_kernels_ms_per_step"] = {k[:80]: sum(v) / n for k, v in top}
+        print(f"{tag}: {n_kernels:.0f} kernels, {busy_ms:.2f} ms of kernel time per step "
+              f"against {wall_ms:.2f} ms wall (card busy {busy_ms / wall_ms:.1%}); top: "
+              + "; ".join(f"{k[:60]} {sum(v) / n:.2f} ms" for k, v in top), flush=True)
+    else:
+        print(f"{tag}: the profiler saw no device activity (not measured)", flush=True)
+    return row
+
+
 def encode_phase(dev, target_frame, workdir: Path) -> dict:
     """Phase 5: the intra encode of one 512x768 frame at hop, `tpu` profile,
     through the port's CLI on the card; the new file's grids decoded by the
@@ -438,37 +485,12 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
           f"{statistics.median(step_ms):.2f} ms median of 20 (CUDA events), host "
           f"{host_ms:.2f} ms per step over 21", flush=True)
 
-    # what the card does in a step: kernels and their summed time over 3
-    # steps (torch.profiler), against the steps' wall time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for s in range(3):
-            leaves, states = fns.step(leaves, states,
-                                      draw("step", fcfg, 1, "gaussian", level, True), temp,
-                                      lr, target, lmbda, refresh=False)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.time() - t0) / 3
-    kernels: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kernels.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
-    n_kernels = sum(len(v) for v in kernels.values()) / 3
-    busy_ms = sum(sum(v) for v in kernels.values()) / 3
-    profile_row = {"kernels_per_step": n_kernels, "kernel_ms_per_step": busy_ms,
-                   "wall_ms_per_step_profiled": wall_ms}
-    if n_kernels:
-        top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:5]
-        profile_row["top_kernels_ms_per_step"] = {k[:80]: sum(v) / 3 for k, v in top}
-        print(f"[5] profiled step: {n_kernels:.0f} kernels, {busy_ms:.2f} ms of kernel time "
-              f"per step against {wall_ms:.2f} ms wall (card busy {busy_ms / wall_ms:.1%}); "
-              f"top: " + "; ".join(f"{k[:60]} {sum(v) / 3:.2f} ms" for k, v in top),
-              flush=True)
-    else:
-        print("[5] profiled step: the profiler saw no device activity (not measured)",
-              flush=True)
+    # what the card does in a step
+    def one_step():
+        nonlocal leaves, states
+        leaves, states = fns.step(leaves, states, draw("step", fcfg, 1, "gaussian", level, True),
+                                  temp, lr, target, lmbda, refresh=False)
+    profile_row = profile_steps("[5] profiled step", one_step)
     return {"launches": launches, "step_ms": statistics.median(step_ms),
             "host_step_ms": host_ms, "step_profile": profile_row,
             "stages_s": stages["stages_s"], "peak_bytes": peak, "psnr_enc":
@@ -812,6 +834,70 @@ def planes_mse(dec, ref) -> float:
         / sum(n.values())
 
 
+def against_saved_frame(tag: str, decoded: dict, wd: Path, saved_name, originals: list,
+                        disp: int) -> dict:
+    """A decoded frame against the encoder's own saved frame: luma within
+    one code value, on under 0.1 % of the samples. The decoder rounds its
+    444 output to 8 bits before the 420 pooling and the encoder pools
+    first (the JAX package's and the reference's pipelines, ROADMAP.md
+    Queue 3), so a chroma sample is one code apart on a share of the
+    samples, and the P/B frames predict from references that differ so:
+    chroma within two codes, more than one code apart on under 1 % of the
+    samples, and the decoder's PSNR within 0.05 dB of the saved frame's."""
+    import numpy as np
+
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+
+    saved = load_frame_data_from_file(str(wd / saved_name(disp)))
+    rec = {}
+    for k, v in saved.data.items():
+        d = np.abs(np.round(decoded[str(disp)].data[k] * 255) - np.round(v * 255))
+        rec[k] = {"max_codes": float(d.max()), "share_off": float((d > 0).mean()),
+                  "share_over_1": float((d > 1).mean())}
+    psnr_dec = -10 * np.log10(planes_mse(decoded[str(disp)], originals[disp]))
+    psnr_saved = -10 * np.log10(planes_mse(saved, originals[disp]))
+    print(f"{tag}{disp}: decoder psnr {psnr_dec:.3f} dB, the encoder's saved frame "
+          f"{psnr_saved:.3f} dB; against it per plane (max codes, share of samples off, "
+          f"share more than one code off): " + ", ".join(
+              f"{k} {r['max_codes']:.0f} {r['share_off']:.2e} {r['share_over_1']:.2e}"
+              for k, r in rec.items()), flush=True)
+    check(rec["y"]["max_codes"] <= 1 and rec["y"]["share_off"] < 1e-3,
+          f"{tag}{disp} luma decode vs the encoder's frame: {rec['y']}")
+    check(all(rec[k]["max_codes"] <= 2 and rec[k]["share_over_1"] < 1e-2
+              for k in ("u", "v")), f"{tag}{disp} chroma decode vs the encoder's frame: {rec}")
+    check(abs(psnr_dec - psnr_saved) <= 0.05,
+          f"{tag}{disp} decoder psnr {psnr_dec:.3f} vs the saved frame's {psnr_saved:.3f} dB")
+    return {**rec, "psnr_dec": psnr_dec, "psnr_saved": psnr_saved}
+
+
+def file_grids_on_host(tag: str, path: Path, dev) -> dict:
+    """Every grid of every cool-chic of a multi-frame `tpu` file: the
+    device path (the kernel on the 128-stream levels) == the host C++;
+    returns each cool-chic's kernel levels and grid sizes."""
+    import numpy as np
+
+    from coolchic_tpu_torch.bitstream import codec
+    from coolchic_tpu_torch.bitstream.decode import _decode_items_batched
+    from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks
+
+    grid_levels = {}
+    for disp, ft, name, item in file_items(path):
+        outputs, recs = _decode_items_batched([item], dev)
+        _, host = codec.decode_coolchic_tpu_host(*item, device=dev)
+        cfg = item[0].to_config()
+        for lv in range(cfg.n_latent_grids):
+            check(np.array_equal(outputs[0][1][lv], host[lv]),
+                  f"frame {disp} {name} level {lv}: device path != host C++")
+        blocks = _parse_level_blocks(cfg, item[2])
+        k_levels = [lv for lv in range(cfg.n_latent_grids) if blocks[lv]["n_streams"] == 128]
+        grid_levels[f"{ft}{disp} {name}"] = {"kernel_levels": k_levels,
+                                             "grids": list(cfg.size_per_latent)}
+        print(f"{tag} {ft}{disp} {name}: {cfg.n_latent_grids} grids "
+              f"{list(cfg.size_per_latent)} == host C++; 128-stream (kernel) levels "
+              f"{k_levels}; route {recs[0]['path']}", flush=True)
+    return grid_levels
+
+
 def motion_grid_on_kernel(dev, cc, cfg, q_shift, expgol) -> dict:
     """The motion cool-chic's finest grid coded as 128 streams (the `tpu`
     profile's layout of a grid of 65 536 px or more; at 512x768 the motion
@@ -903,10 +989,7 @@ def video_phase(dev, frame, work: Path) -> dict:
     import torch
 
     from coolchic_tpu_torch import cc_encode
-    from coolchic_tpu_torch.bitstream import codec
-    from coolchic_tpu_torch.bitstream.decode import _decode_items_batched, decode_frame, \
-        decode_video
-    from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks
+    from coolchic_tpu_torch.bitstream.decode import decode_frame, decode_video
     from coolchic_tpu_torch.bitstream.encode import encode_frame
     from coolchic_tpu_torch.io.io import load_frame_data_from_file
     from coolchic_tpu_torch.io.yuv import convert_420_to_444
@@ -1001,21 +1084,7 @@ def video_phase(dev, frame, work: Path) -> dict:
           flush=True)
 
     # every grid of both cool-chics: device path == host C++
-    grid_levels = {}
-    for disp, ft, name, item in file_items(out):
-        outputs, recs = _decode_items_batched([item], dev)
-        _, host = codec.decode_coolchic_tpu_host(*item, device=dev)
-        cfg = item[0].to_config()
-        for lv in range(cfg.n_latent_grids):
-            check(np.array_equal(outputs[0][1][lv], host[lv]),
-                  f"frame {disp} {name} level {lv}: device path != host C++")
-        blocks = _parse_level_blocks(cfg, item[2])
-        k_levels = [lv for lv in range(cfg.n_latent_grids) if blocks[lv]["n_streams"] == 128]
-        grid_levels[f"{ft}{disp} {name}"] = {"kernel_levels": k_levels,
-                                             "grids": list(cfg.size_per_latent)}
-        print(f"[8] {ft}{disp} {name}: {cfg.n_latent_grids} grids {list(cfg.size_per_latent)}"
-              f" == host C++; 128-stream (kernel) levels {k_levels}; route "
-              f"{recs[0]['path']}", flush=True)
+    grid_levels = file_grids_on_host("[8]", out, dev)
 
     # the kernel on the motion configuration: each motion cool-chic's
     # finest grid as 128 streams, kernel == plain == host C++
@@ -1029,37 +1098,9 @@ def video_phase(dev, frame, work: Path) -> dict:
               f"plain == host C++ ({motion_grids[ft]['launches']} launch, not on the main "
               f"path)", flush=True)
 
-    # the decoded frames against the encoder's own saved frames: luma within
-    # one code value, on under 0.1 % of the samples. The decoder rounds its
-    # 444 output to 8 bits before the 420 pooling and the encoder pools
-    # first (the JAX package's and the reference's pipelines, ROADMAP.md
-    # Queue 3), so a chroma sample is one code apart on a share of the
-    # samples, and the P/B frames predict from references that differ so:
-    # chroma within two codes, more than one code apart on under 1 % of the
-    # samples, and the decoder's PSNR within 0.05 dB of the saved frame's
-    code_diff = {}
-    for ft in ("I", "P", "B"):
-        disp = frames[ft]["display_index"]
-        saved = load_frame_data_from_file(str(wd / saved_name(disp)))
-        rec = {}
-        for k, v in saved.data.items():
-            d = np.abs(np.round(decoded[str(disp)].data[k] * 255) - np.round(v * 255))
-            rec[k] = {"max_codes": float(d.max()), "share_off": float((d > 0).mean()),
-                      "share_over_1": float((d > 1).mean())}
-        psnr_dec = -10 * np.log10(planes_mse(decoded[str(disp)], originals[disp]))
-        psnr_saved = -10 * np.log10(planes_mse(saved, originals[disp]))
-        code_diff[ft] = {**rec, "psnr_dec": psnr_dec, "psnr_saved": psnr_saved}
-        print(f"[8] {ft}{disp}: decoder psnr {psnr_dec:.3f} dB, the encoder's saved frame "
-              f"{psnr_saved:.3f} dB; against it per plane (max codes, share of samples off, "
-              f"share more than one code off): " + ", ".join(
-                  f"{k} {r['max_codes']:.0f} {r['share_off']:.2e} {r['share_over_1']:.2e}"
-                  for k, r in rec.items()), flush=True)
-        check(rec["y"]["max_codes"] <= 1 and rec["y"]["share_off"] < 1e-3,
-              f"{ft} luma decode vs the encoder's frame: {rec['y']}")
-        check(all(rec[k]["max_codes"] <= 2 and rec[k]["share_over_1"] < 1e-2
-                  for k in ("u", "v")), f"{ft} chroma decode vs the encoder's frame: {rec}")
-        check(abs(psnr_dec - psnr_saved) <= 0.05,
-              f"{ft} decoder psnr {psnr_dec:.3f} vs the saved frame's {psnr_saved:.3f} dB")
+    code_diff = {ft: against_saved_frame(f"[8] {ft}", decoded, wd, saved_name,
+                                         originals, frames[ft]["display_index"])
+                 for ft in ("I", "P", "B")}
 
     # --------------------------------------------- warp_fn card against CPU
     ref0 = torch.as_tensor(convert_420_to_444(decoded["0"].data), dtype=torch.float32)
@@ -1214,6 +1255,308 @@ def video_phase(dev, frame, work: Path) -> dict:
             "warp_ms": {"forward": fwd_ms, "forward_backward": fb_ms}, "steps": steps,
             "probes": probes, "rdoq_p": {"seconds": rdoq_s, "before": before, "after": after,
                                          "sweeps": log}}
+
+
+def _sliced(tree, sl: slice):
+    """Slots `sl` of the batch axis of nested lists / dicts of tensors."""
+    import torch
+
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree[sl]
+    if isinstance(tree, dict):
+        return {k: _sliced(v, sl) for k, v in tree.items()}
+    return [_sliced(v, sl) for v in tree]
+
+
+def _cat(a, b):
+    import torch
+
+    if a is None or isinstance(a, torch.Tensor):
+        return None if a is None else torch.cat([a, b])
+    if isinstance(a, dict):
+        return {k: _cat(a[k], b[k]) for k in a}
+    return [_cat(x, y) for x, y in zip(a, b)]
+
+
+def batch_steps(tag: str, dev, params_list, fcfg, targets, phase, refs_list=None,
+                n: int = 20, alone_slot0: bool = False) -> dict:
+    """n + 1 training steps of the main phase at G = len(params_list), as
+    the batched encode and the wave take them (one generator per slot,
+    train.SlotNoise), CUDA events around each step; the first is a warm-up.
+    With alone_slot0, slot 0 also steps alone at n = 1 with its own
+    generator, carried step by step (before each step slot 0 of the batch
+    takes the alone run's parameters and SOAP state): the worst coordinate
+    between the two after each step, against the carried-state bar of
+    5e-2 * lr. Then 3 steps under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.models.params import tree_from_numpy
+    from coolchic_tpu_torch.train.encode import _target_from_frame
+    from coolchic_tpu_torch.train.params import tree_leaves, tree_map
+    from coolchic_tpu_torch.train.train import PhaseFns, SlotNoise, TorchNoise, init_opt_state
+
+    G = len(params_list)
+    stacked = tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *params_list)
+    like = tree_from_numpy(stacked, dev)
+
+    def fns_for(like_):
+        return PhaseFns(fcfg, like_, phase.quantizer_noise_type, phase.quantizer_type,
+                        phase.dist_weight, tuple(phase.betas_model),
+                        tuple(phase.betas_latent), phase.precondition_frequency_model)
+
+    fns = fns_for(like)
+    leaves = tree_leaves(like)
+    states = init_opt_state(leaves, fns.groups, fns.hp_weight, fns.hp_latent)
+    tgts = [_target_from_frame(t, dev) for t in targets]
+    target = (tree_map(lambda *xs: torch.cat(xs), *tgts) if isinstance(tgts[0], dict)
+              else torch.cat(tgts))
+    refs = None if refs_list is None else [
+        torch.cat([torch.as_tensor(r[j], device=dev) for r in refs_list])
+        for j in range(len(refs_list[0]))]
+    noise = SlotNoise([torch.Generator(device=dev).manual_seed(7 + i) for i in range(G)])
+    level = torch.full((G,), phase.noise_parameter[0], device=dev)
+    lmbda = torch.full((G,), phase.lmbda, device=dev)
+    lr, temp = torch.tensor(phase.lr, device=dev), phase.softround_temperature[0]
+    if alone_slot0:
+        first, rest = slice(0, 1), slice(1, None)
+        fns1 = fns_for(_sliced(like, first))
+        leaves1, states1 = _sliced(leaves, first), _sliced(states, first)
+        noise1 = TorchNoise(torch.Generator(device=dev).manual_seed(7))
+        target1 = _sliced(target, first)
+        refs1 = None if refs is None else [r[:1] for r in refs]
+    events, worst = [], []
+    for s in range(n + 1):
+        refresh = (s + 1) % fns.pf == 0
+        if alone_slot0:
+            leaves = _cat(leaves1, _sliced(leaves, rest))
+            states = _cat(states1, _sliced(states, rest))
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        leaves, states = fns.step(leaves, states, noise("step", fcfg, G, phase.quantizer_noise_type,
+                                                        level, fns.need_noise),
+                                  temp, lr, target, lmbda, refs, refresh=refresh)
+        e1.record()
+        events.append((e0, e1))
+        if alone_slot0:
+            leaves1, states1 = fns1.step(
+                leaves1, states1, noise1("step", fcfg, 1, phase.quantizer_noise_type,
+                                         level[:1], fns1.need_noise),
+                temp, lr, target1, lmbda[:1], refs1, refresh=refresh)
+            worst.append(max(float((a[:1] - b).abs().max()) for a, b in zip(leaves, leaves1)))
+    torch.cuda.synchronize()
+    out = {"step_ms": statistics.median(a.elapsed_time(b) for a, b in events[1:]), "G": G,
+           "steps": n}
+    if alone_slot0:
+        out.update(slot0_vs_alone_worst=max(worst), bar=5e-2 * phase.lr)
+
+    def one_step():
+        nonlocal leaves, states
+        leaves, states = fns.step(leaves, states, noise("step", fcfg, G,
+                                                        phase.quantizer_noise_type, level,
+                                                        fns.need_noise),
+                                  temp, lr, target, lmbda, refs, refresh=False)
+    out["profile"] = profile_steps(f"{tag} profiled step at G = {G}", one_step)
+    return out
+
+
+def batch_encode_phase(dev, frames: list, work: Path, n1_step_ms: float) -> dict:
+    """Phase 9a: phase 3's 8 decoded frames through encode_images_batched
+    (hop, lambda 1e-3, debug recipe, `tpu`, no RDOQ), the 8 files batch
+    decoded through the kernel, each grid kernel == host C++, each decoded
+    image's PSNR within 0.3 dB of the encoder's; ms per training step at
+    G = 8 beside phase 5's n = 1 step, images/s, seconds per stage, peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.bitstream.decode import decode_images
+    from coolchic_tpu_torch.models.frame import FrameConfig, frame_encoder_init
+    from coolchic_tpu_torch.models.params import tree_to_numpy
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+    from coolchic_tpu_torch.parallel.encode_batch import encode_images_batched
+    from coolchic_tpu_torch.train.loss import dist_to_db
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.train import EncoderMonitor
+    from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args, \
+        intra_operating_points
+
+    work.mkdir()
+    G = len(frames)
+    cfgs = {"residue": coolchic_config_from_args(intra_operating_points()["hop"],
+                                                 frames[0].img_size)}
+    preset = PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1)
+    paths = [str(work / f"img{k}.cool") for k in range(G)]
+    monitor = EncoderMonitor(device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = encode_images_batched(frames, cfgs, preset, paths, seed=0, verbose=False, rdoq=False,
+                                profile="tpu", monitor=monitor, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    h, w = frames[0].img_size
+    print(f"[9a] encode_images_batched of {G} {h}x{w} images (hop, debug recipe, tpu, no "
+          f"RDOQ): {wall:.1f} s = {G / wall:.3f} images/s; peak {peak / 2**30:.2f} GiB; "
+          f"{monitor.iterations_counter} slot-iterations", flush=True)
+    print("[9a] stages (EncoderMonitor, s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in monitor.phase_time_sec.items()), flush=True)
+
+    wfd.KERNEL.launches = 0
+    t0 = time.time()
+    decoded, routes = decode_images(paths, device=dev, return_routes=True)
+    torch.cuda.synchronize()
+    dec_s, launches = time.time() - t0, wfd.KERNEL.launches
+    check(all(r["path"] == "device" for r in routes), f"batched files: routes {routes}")
+    check(launches == 2, f"decode_images of the {G} batched files: {launches} kernel launches")
+    psnr = []
+    for k, (r, dec, frame) in enumerate(zip(res, decoded, frames)):
+        p_dec = dist_to_db(float(np.mean(np.square(np.asarray(dec.data, np.float64)
+                                                   - np.asarray(frame.data, np.float64)))))
+        psnr.append({"encoder": r["psnr_db"], "decoder": p_dec, "bytes": r["n_bytes"]})
+        check(abs(p_dec - r["psnr_db"]) < 0.3,
+              f"image {k}: decoder psnr {p_dec:.3f} vs encoder {r['psnr_db']:.3f} dB")
+    k_levels = [check_file_grids(Path(p), dev) for p in paths]
+    print(f"[9a] decode_images of the {G} files: {dec_s:.2f} s, routes "
+          f"{[(r['path'], r['items']) for r in routes]}, wavefront_decode launches "
+          f"{launches}; every grid of every file kernel == host C++ (levels "
+          f"{k_levels[0]}); psnr encoder/decoder: " + ", ".join(
+              f"{p['encoder']:.3f}/{p['decoder']:.3f}" for p in psnr), flush=True)
+
+    fcfg = FrameConfig(coolchic_cfg=cfgs, frame_type="I", frame_data_type="rgb", bitdepth=8)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = [tree_to_numpy(frame_encoder_init(gen, fcfg, None, device=dev)) for _ in frames]
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = batch_steps("[9a]", dev, params, fcfg, frames, preset.training_phases[0])
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[9a] training step at G = {G} ({h}x{w} hop, one generator a slot): "
+          f"{steps['step_ms']:.2f} ms median of 20 (CUDA events) against phase 5's n = 1 "
+          f"step {n1_step_ms:.2f} ms: {steps['step_ms'] / n1_step_ms:.2f}x the time for "
+          f"{G}x the images; peak {step_peak / 2**30:.2f} GiB", flush=True)
+    return {"wall_s": wall, "images_per_s": G / wall, "stages_s": monitor.phase_time_sec,
+            "peak_bytes": peak, "decode_s": dec_s, "decode_launches": launches,
+            "kernel_levels": k_levels[0], "psnr": psnr, "step_ms_G8": steps["step_ms"],
+            "step_ms_n1_phase5": n1_step_ms, "step_peak_bytes": step_peak,
+            "step_profile": steps["profile"]}
+
+
+def wave_phase(dev, frame, p8: Path, work: Path, b_step_ms: float) -> dict:
+    """Phase 9b: a 5-frame 512x768 clip (frames 0-2 are phase 8's), I0
+    resumed from phase 8's checkpoint, P4 and B2 by encode_one_frame, then
+    (B1, B3) as one encode_wave_group (residue hop, motion mop, debug
+    recipe, `tpu`, no RDOQ); decode_video of the file with its kernel
+    launches, every grid kernel == host C++, each frame within phase 8's
+    bars against the encoder's saved frame; ms per step of the G = 2 wave
+    beside phase 8's B step; slot 0's first window against the same frame
+    stepping alone, carried step by step; peak memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.bitstream.decode import decode_video
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.io.yuv import convert_420_to_444
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+    from coolchic_tpu_torch.parallel.gop import gop_waves
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.video import encode_one_frame, encode_wave_group
+    from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder
+    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
+    from coolchic_tpu_torch.utils.parsecli import motion_operating_points, \
+        residue_operating_points
+
+    work.mkdir()
+    h, w = frame.img_size
+    clip = work / f"clip_{w}x{h}_60p_yuv420_8b.yuv"
+    synthetic_clip(frame, clip, n_frames=5)
+
+    def saved_name(disp: int) -> str:   # train/video.py:_decoded_name
+        return f"{disp:04d}-decoded_{w}x{h}_yuv420_8b.yuv"
+    originals = [load_frame_data_from_file(str(clip), t) for t in range(5)]
+    wd = work / "w"
+    wd.mkdir()
+    shutil.copy(p8 / "w" / "0000-frame_encoder.npz", wd)   # I0: the resume path
+    cs = CodingStructure(n_frames=5, intra_pos=[0], p_pos=[4])
+    waves = gop_waves(cs)
+    check([[f.display_order for f in wv] for wv in waves] == [[0], [4], [2], [1, 3]],
+          f"waves {[[f.display_order for f in wv] for wv in waves]}")
+    lmbda = 5e-5   # phase 8's: the CLI's rate check there
+    preset = PresetDebug(lmbda=lmbda, start_lr=1e-2, itr_main_training=1)
+    inter = {"residue": residue_operating_points()["hop"],
+             "motion": motion_operating_points()["mop"]}
+    kw = dict(seed=0, verbose=False, rdoq=False, profile="tpu", device=dev)
+    results, serial_s = {}, {}
+    for wave in waves[:3]:
+        f = wave[0]
+        t0 = time.time()
+        results[f.display_order] = encode_one_frame(f, cs, str(clip), str(wd), preset, inter,
+                                                    **kw)
+        torch.cuda.synchronize()
+        serial_s[f"{f.frame_type}{f.display_order}"] = time.time() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    wave_res = encode_wave_group(waves[3], cs, str(clip), str(wd), preset, inter, **kw)
+    torch.cuda.synchronize()
+    wave_s, wave_peak = time.time() - t0, torch.cuda.max_memory_allocated(dev)
+    for f, r in zip(waves[3], wave_res):
+        results[f.display_order] = r
+    stages = {f"B{f.display_order}": r["monitor"].phase_time_sec
+              for f, r in zip(waves[3], wave_res)}
+    print(f"[9b] serial I0 (resumed), P4, B2: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in serial_s.items()) + f"; wave (B1, B3): {wave_s:.1f} s, "
+        f"peak {wave_peak / 2**30:.2f} GiB", flush=True)
+    for k, st in stages.items():
+        print(f"[9b] {k} stages (s): " + ", ".join(f"{n} {v:.2f}" for n, v in st.items()),
+              flush=True)
+
+    out = work / "clip.cool"
+    order = sorted(range(5), key=lambda d: cs.get_frame_from_display_order(d).coding_order)
+    out.write_bytes(b"".join(results[d]["payload"] for d in order))
+    routes = []
+    wfd.KERNEL.launches = 0
+    t0 = time.time()
+    decoded = decode_video(str(out), device=dev, routes=routes)
+    torch.cuda.synchronize()
+    dec_s, dec_launches = time.time() - t0, wfd.KERNEL.launches
+    check(sorted(decoded) == [str(i) for i in range(5)], f"decoded frames {sorted(decoded)}")
+    check(dec_launches == 10, f"decode_video of the 5-frame file: {dec_launches} launches")
+    print(f"[9b] decode_video I0 P4 B2 B1 B3 ({out.stat().st_size} bytes): {dec_s:.2f} s, "
+          f"wavefront_decode launches {dec_launches}", flush=True)
+    grid_levels = file_grids_on_host("[9b]", out, dev)
+    code_diff = {f"{results[d]['fcfg'].frame_type}{d}": against_saved_frame(
+        f"[9b] {results[d]['fcfg'].frame_type}", decoded, wd, saved_name, originals, d)
+        for d in range(5)}
+
+    # ms per step of the G = 2 wave, and slot 0 against B1 stepping alone
+    phase = preset.training_phases[0]
+    params, refs, tgts, fcfg = [], [], [], None
+    for d in (1, 3):
+        p, fcfg_d, _ = load_frame_encoder(str(wd / f"{d:04d}-frame_encoder.npz"))
+        fcfg = fcfg or fcfg_d
+        params.append(p)
+        tgts.append(originals[d])
+        refs.append([convert_420_to_444(load_frame_data_from_file(
+            str(wd / saved_name(i))).data).astype(np.float32)
+            for i in fcfg_d.index_references])
+    n_win = min(phase.freq_valid, phase.max_itr)
+    steps = batch_steps("[9b]", dev, params, fcfg, tgts, phase, refs, n=n_win - 1,
+                        alone_slot0=True)
+    print(f"[9b] wave training step at G = 2 ({h}x{w}, residue hop + motion mop, filter 8): "
+          f"{steps['step_ms']:.2f} ms median of {n_win - 1} (CUDA events) against phase 8's "
+          f"B step {b_step_ms:.2f} ms; slot 0's first window ({n_win} steps) against B1 "
+          f"alone, carried step by step: worst coordinate {steps['slot0_vs_alone_worst']:.2e} "
+          f"(bar {steps['bar']:.0e})", flush=True)
+    check(steps["slot0_vs_alone_worst"] <= steps["bar"],
+          f"wave slot 0 vs the frame alone: {steps['slot0_vs_alone_worst']:.2e}")
+    return {"serial_s": serial_s, "wave_s": wave_s, "wave_peak_bytes": wave_peak,
+            "stages_s": stages, "decode_s": dec_s, "decode_launches": dec_launches,
+            "routes": [{k: v for k, v in r.items() if k != "items"} for r in routes],
+            "grid_levels": grid_levels, "code_diff": code_diff,
+            "step_ms_G2": steps["step_ms"], "b_step_ms_phase8": b_step_ms,
+            "slot0_vs_alone_worst": steps["slot0_vs_alone_worst"], "bar": steps["bar"],
+            "step_profile": steps["profile"]}
 
 
 def main() -> int:
@@ -1521,6 +1864,9 @@ def main() -> int:
         rdoq = rdoq_phase(dev, wd / "p5", wd / "p6")
         wass = wasserstein_phase(dev, wd / "p5" / "target.ppm", wd / "p7")
         video = video_phase(dev, frames[0], wd / "p8")
+        batch_enc = batch_encode_phase(dev, frames, wd / "p9a", enc["step_ms"])
+        wave = wave_phase(dev, frames[0], wd / "p8", wd / "p9b",
+                          video["steps"]["B"]["step_ms"])
 
     kernels = [{
         "name": "wavefront_decode",
@@ -1533,7 +1879,9 @@ def main() -> int:
                              "cc_encode --tune wasserstein": wass["cli"]["launches"],
                              **{f"cc_encode {ft} frame (video)": r["launches"]
                                 for ft, r in video["frames"].items()},
-                             "decode_video I+P+B": video["decode_launches"]},
+                             "decode_video I+P+B": video["decode_launches"],
+                             "decode_images of 8 batched encodes": batch_enc["decode_launches"],
+                             "decode_video I0 P4 B2 B1 B3 (wave)": wave["decode_launches"]},
         "max_abs_err": max(max_abs_err, *(g["max_abs_err"]
                                           for g in video["motion_grids"].values())),
         "ms": kern1_ms,
@@ -1557,6 +1905,8 @@ def main() -> int:
     print(json.dumps({"rdoq_512x768_hop": rdoq, "card": card}), flush=True)
     print(json.dumps({"wasserstein_512x768_hop": wass, "card": card}), flush=True)
     print(json.dumps({"video_512x768": video, "card": card}), flush=True)
+    print(json.dumps({"batch_encode_512x768_hop": batch_enc, "card": card}), flush=True)
+    print(json.dumps({"wave_512x768": wave, "card": card}), flush=True)
     tmp.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())

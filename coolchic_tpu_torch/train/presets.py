@@ -67,25 +67,51 @@ class Preset:
         # concrete preset's __post_init__ (subclasses are not re-decorated).
         pass
 
+    def warmup_noise_parameter(self, lmbda: float):
+        """Warm-up noise_parameter a slot at rate point `lmbda` would get if
+        the preset were built for that λ; None when the preset's warm-up
+        noise is not λ-derived. Lets a mixed-λ batch keep the reference's
+        λ-dependent warm-up noise per slot (reference
+        training/presets.py:311)."""
+        return None
+
 
 def _intra_warmup_noise_level(lmbda: float) -> float:
     """λ-dependent warm-up init noise (reference training/presets.py:311)."""
     return (-0.432 * math.log10(lmbda) + 0.747) / 10.0
 
 
+@dataclass
 class PresetIntra(Preset):
+    """`itr_floor` below 2000 relaxes the production minimum of 2000
+    iterations for short smoke schedules: under 2000 the STE tail is a
+    fifth of the budget and each warm-up stage a tenth (the JAX package's
+    COOLCHIC_ITR_FLOOR schedule, here a keyword)."""
+
+    itr_floor: int = field(default=2000, repr=False)
+
+    def warmup_noise_parameter(self, lmbda: float):
+        lvl = _intra_warmup_noise_level(lmbda)
+        return (lvl, lvl)
+
     def __post_init__(self):
         self.preset_name = "intra"
-        if self.itr_main_training < 2000:
-            raise ValueError("intra preset requires --n_itr >= 2000")
+        floor = min(2000, self.itr_floor)
+        if self.itr_main_training < floor:
+            raise ValueError(f"intra preset requires --n_itr >= {floor}")
 
         init_noise_level = _intra_warmup_noise_level(self.lmbda)
 
-        iter_ste_training = 500
+        # production keeps the 500-iteration STE tail; a relaxed-floor
+        # budget scales it down so the core phase stays positive
+        iter_ste_training = (500 if self.itr_main_training >= 2000
+                             else max(self.itr_main_training // 5, 1))
         iter_core_training = self.itr_main_training - iter_ste_training
 
         wu_n_iter = 400
-        if self.itr_main_training < 4000:
+        if self.itr_main_training < 2000:
+            wu_n_iter = max(self.itr_main_training // 10, 1)
+        elif self.itr_main_training < 4000:
             wu_n_iter = 50
         elif self.itr_main_training < 9000:
             wu_n_iter = 100

@@ -135,6 +135,42 @@ class TorchNoise:
                 for name, cfg in fcfg.cc_cfgs.items()}
 
 
+class SlotNoise:
+    """One noise stream per batch slot: slot i draws its [1, ...] share of
+    every grid from its own torch.Generator, and the slots' draws are
+    concatenated. Slot i therefore gets exactly the draws that
+    TorchNoise(generator i) gives a batch of one, the SOAP-seeding draw
+    included, whatever the other slots are (the JAX package's per-slot
+    keys, keys_b of parallel/encode_batch.py:_batched_phase)."""
+
+    def __init__(self, generators: list):
+        self.generators = list(generators)
+
+    def __call__(self, kind: str, fcfg: FrameConfig, G: int, noise_type: str,
+                 noise_parameter: torch.Tensor, need: bool) -> Optional[dict]:
+        if G != len(self.generators):
+            raise ValueError(f"{len(self.generators)} generators for a batch of {G}")
+        if not need:
+            return None
+        param = noise_parameter.reshape(G, 1, 1)
+        return {name: [torch.cat([sample_noise((1, *s), noise_type, param[i:i + 1],
+                                               generator=g, device=param.device)
+                                  for i, g in enumerate(self.generators)])
+                       for s in cfg.size_per_latent]
+                for name, cfg in fcfg.cc_cfgs.items()}
+
+
+def _frame_phase_generator(seed: int, display_order: int, phase_idx: int,
+                           device: torch.device) -> torch.Generator:
+    """Per-(frame, phase) generator, independent of batch composition: the
+    main phases use phase_idx >= 0, the warm-up -1, the candidate init -2,
+    the motion pretraining's init -3 and its training noise -4. The
+    batched multi-image encode seeds slot i as display order i."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed + 1000 * display_order) * 100_003 + 7919 + phase_idx)
+    return g
+
+
 class PhaseFns:
     """The step, gradient and eval of one phase configuration (the port of
     coolchic_tpu/train/train.py:_make_fns_impl). Parameters travel as the

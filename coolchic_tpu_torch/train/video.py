@@ -9,9 +9,18 @@
   4. training phases, NN quantization, RDOQ, bitstream write;
   5. save the decoded frame (later frames reference it) and the logs.
 
+The GOP driver encode_video walks the frames in coding order with the
+reference's per-depth rules (operating points, λ · 1.5^depth, shrinking
+iteration budgets for B frames), or, with waves=True, encodes each
+dependency wave's same-depth frames as one batch (encode_wave_group): the
+frames become batch slots of the main phases, each slot with its own
+references and its own noise stream, so a frame trains alike in a wave and
+alone.
+
 The port of coolchic_tpu/train/video.py (encode_one_frame, _prep_frame,
 guided_motion_pretraining, _rdoq_frame_ctx, _quantize_frame,
-_finalize_frame). Every stage runs on the requested device; the host does
+_finalize_frame, encode_wave_group, frame_cfg_args, _frame_preset,
+encode_video). Every stage runs on the requested device; the host does
 the global translation search (numpy, as the JAX package), the SOAP eigh
 seeding, the NN quantization and RDOQ bookkeeping and the range coding. The
 main phases run the batched window at n = 1 (the references ride its batch
@@ -23,8 +32,7 @@ display order, phase index), the role of _frame_phase_key in the JAX
 package; the streams differ from JAX's PRNG, so the port's encode of an
 image is not the JAX encode's bit for bit, only its equal in RD terms.
 
-Not ported yet: the GOP loop (encode_video, frame_cfg_args,
-_frame_preset), the wave encode (encode_wave_group), the spatial mesh.
+Not ported yet: the spatial mesh.
 """
 
 from __future__ import annotations
@@ -63,11 +71,13 @@ from coolchic_tpu_torch.train.logs import (
     write_reference_encoder_tsv,
 )
 from coolchic_tpu_torch.train.params import tree_leaves, tree_map
-from coolchic_tpu_torch.train.presets import Preset
+from coolchic_tpu_torch.train.presets import Preset, PresetInter, PresetIntra
 from coolchic_tpu_torch.train.train import (
     EncoderMonitor,
     PhaseFns,
+    SlotNoise,
     TorchNoise,
+    _frame_phase_generator,
     index_tree,
     stack_trees,
     test,
@@ -76,7 +86,13 @@ from coolchic_tpu_torch.train.train import (
 from coolchic_tpu_torch.train.warmup import warmup_batched
 from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder, save_frame_encoder
 from coolchic_tpu_torch.utils.codingstructure import CodingStructure, Frame
-from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args, substitute_x_channels
+from coolchic_tpu_torch.utils.parsecli import (
+    coolchic_config_from_args,
+    intra_operating_points,
+    motion_operating_points,
+    residue_operating_points,
+    substitute_x_channels,
+)
 from coolchic_tpu_torch.utils.results import write_frame_results
 
 # Pixel x trial budget of one batched NN-quantization eval.
@@ -107,16 +123,6 @@ def _dense(frame: FrameData) -> np.ndarray:
     if frame.frame_data_type == "yuv420":
         return convert_420_to_444(frame.data)
     return np.asarray(frame.data)
-
-
-def _frame_phase_generator(seed: int, display_order: int, phase_idx: int,
-                           device: torch.device) -> torch.Generator:
-    """Per-(frame, phase) generator, independent of batch composition: the
-    main phases use phase_idx >= 0, the warm-up -1, the candidate init -2,
-    the motion pretraining's init -3 and its training noise -4."""
-    g = torch.Generator(device=device)
-    g.manual_seed((seed + 1000 * display_order) * 100_003 + 7919 + phase_idx)
-    return g
 
 
 def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path: str,
@@ -452,3 +458,174 @@ def _finalize_frame(frame: Frame, coding_structure: CodingStructure, params: dic
     return {"payload": payload, "logs": logs, "decoded": decoded,
             "n_bytes": len(payload), "fcfg": fcfg, "detailed": detailed,
             "monitor": monitor}
+
+
+def encode_wave_group(group: list[Frame], coding_structure: CodingStructure,
+                      video_path: str, workdir: str, preset: Preset,
+                      cfg_args: dict[str, dict], warp_filter_size: int = 8, seed: int = 0,
+                      verbose: bool = True, rdoq: bool = True, tune: str = "mse",
+                      profile: str = "ref", device: str | torch.device = "cuda") -> list[dict]:
+    """Encode the frames of one GOP wave together on `device`: the
+    per-frame prep (references, global translation, motion pretraining)
+    and warm-up as encode_one_frame runs them, then the main phases as ONE
+    batch with the frames as slots (their references stacked on the batch
+    axis, slot i's noise from its own frame's generators), then the
+    per-frame NN quantization, RDOQ, checkpoint and bitstream. A frame
+    with a checkpoint in the workdir is finalized from it. Returns one
+    result per frame of `group`, in its order.
+
+    The frames of `group` share frame type and depth (the wave grouping of
+    encode_video guarantees it), hence preset, operating point and size."""
+    dev = resolve_device(device)
+    results: dict[int, dict] = {}
+    todo: list[tuple[Frame, dict]] = []
+    for frame in group:
+        fdata = load_frame_data_from_file(video_path, frame.display_order + frame.frame_offset)
+        frame.data = fdata
+        ckpt_path = os.path.join(workdir, f"{frame.display_order:04d}-frame_encoder.npz")
+        if os.path.exists(ckpt_path):
+            params, fcfg, nn_side_info = load_frame_encoder(ckpt_path)
+            results[frame.display_order] = _finalize_frame(
+                frame, coding_structure, params, fcfg, nn_side_info, fdata, workdir,
+                video_path, verbose, profile=profile, lmbda=preset.lmbda, device=dev)
+            continue
+        prep = _prep_frame(frame, fdata, workdir, video_path, preset, cfg_args,
+                           warp_filter_size, seed, tune, dev, verbose)
+        if any(v is not None for v in prep["cr"].values()):
+            raise ValueError("a wave group does not train common-randomness configs")
+        todo.append((frame, prep))
+
+    if todo:
+        warmed = []
+        for frame, prep in todo:
+            if preset.warmup.phases:
+                noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, -1, dev))
+                with prep["monitor"].timed("warmup"):
+                    warmed.append(warmup_batched(
+                        prep["candidates"], preset, prep["fcfg"], prep["target"],
+                        noise_source=noise, refs=prep["refs"], monitor=prep["monitor"],
+                        verbose=verbose))
+            else:
+                warmed.append(prep["candidates"][0])
+
+        # The main phases: the frames are the batch slots. Display index and
+        # reference ids are bitstream metadata, so the first frame's config
+        # serves the compute of every slot.
+        fcfg0, monitor = todo[0][1]["fcfg"], todo[0][1]["monitor"]
+        params_b = stack_trees(warmed)
+        tgts = [prep["target"] for _, prep in todo]
+        targets_b = (tree_map(lambda *xs: torch.cat(xs), *tgts) if isinstance(tgts[0], dict)
+                     else torch.cat(tgts))
+        refs_b = None
+        if fcfg0.frame_type != "I":
+            refs_b = [torch.cat([prep["refs"][j] for _, prep in todo])
+                      for j in range(len(fcfg0.index_references))]
+        for idx, phase in enumerate(preset.training_phases):
+            # slot i draws from the generator its frame gets on the serial
+            # path, so batching does not change any frame's noise
+            noise = SlotNoise([_frame_phase_generator(seed, frame.display_order, idx, dev)
+                               for frame, _ in todo])
+            t0 = time.time()
+            with monitor.timed(f"wave_train_phase_{idx}"):
+                params_b, _ = _batched_phase(params_b, targets_b, fcfg0, phase, monitor,
+                                             verbose, noise_source=noise, refs_b=refs_b)
+            if verbose:
+                print(f"wave phase {idx} ({len(todo)} frames) done in "
+                      f"{time.time() - t0:.1f}s", flush=True)
+
+        for i, (frame, prep) in enumerate(todo):
+            params, nn_side_info = _quantize_frame(
+                tree_to_numpy(index_tree(params_b, i)), prep["fcfg"], preset, prep["target"],
+                frame.data, prep["monitor"], verbose, dev, rdoq=rdoq, refs=prep["refs"])
+            save_frame_encoder(os.path.join(
+                workdir, f"{frame.display_order:04d}-frame_encoder.npz"),
+                params, prep["fcfg"], nn_side_info)
+            results[frame.display_order] = _finalize_frame(
+                frame, coding_structure, params, prep["fcfg"], nn_side_info, frame.data,
+                workdir, video_path, verbose, profile=profile, lmbda=preset.lmbda,
+                monitor=prep["monitor"], device=dev)
+    return [results[frame.display_order] for frame in group]
+
+
+def frame_cfg_args(frame_type: str, depth: int) -> tuple[dict, dict]:
+    """Per-depth operating points and schedule scaling (reference
+    samples/encode.py:23-70): intra hop; P residue and motion mop; B mop at
+    depth 1 and lop deeper, with budgets shrinking and λ growing by 1.5 a
+    level."""
+    if frame_type == "I":
+        return {"residue": dict(intra_operating_points()["hop"])}, dict(
+            start_lr=1e-2, n_itr=10000, n_itr_motion=0, lmbda_scale=1.0)
+    if frame_type == "P":
+        return ({"residue": dict(residue_operating_points()["mop"]),
+                 "motion": dict(motion_operating_points()["mop"])},
+                dict(start_lr=5e-3, n_itr=10000, n_itr_motion=3000, lmbda_scale=1.0))
+    op = "mop" if depth == 1 else "lop"
+    return ({"residue": dict(residue_operating_points()[op]),
+             "motion": dict(motion_operating_points()[op])},
+            dict(start_lr=1e-2, n_itr=max(10000 - 2000 * depth, 1000),
+                 n_itr_motion=max(5000 - 1000 * depth, 1000),
+                 lmbda_scale=1.5**depth))
+
+
+def _frame_preset(frame: Frame, lmbda: float, itr_scale: float, *,
+                  itr_floor: int = 2000) -> tuple[dict, Preset]:
+    """The operating points and preset of one frame of encode_video: the
+    iteration budget scaled by `itr_scale`, no lower than `itr_floor`
+    (2000 in production; a short smoke schedule passes less)."""
+    cfg_args, sched = frame_cfg_args(frame.frame_type, frame.depth)
+    kw = dict(lmbda=lmbda * sched["lmbda_scale"], start_lr=sched["start_lr"],
+              itr_main_training=max(int(sched["n_itr"] * itr_scale), itr_floor),
+              itr_motion_pretrain=max(int(sched["n_itr_motion"] * itr_scale), 0))
+    preset = (PresetIntra(**kw, itr_floor=itr_floor) if frame.frame_type == "I"
+              else PresetInter(**kw))
+    return cfg_args, preset
+
+
+def encode_video(video_path: str, bitstream_path: str, workdir: str, *, n_frames: int,
+                 intra_pos: list[int], p_pos: list[int], lmbda: float = 1e-3,
+                 itr_scale: float = 1.0, seed: int = 0, verbose: bool = True,
+                 waves: bool = False, itr_floor: int = 2000,
+                 device: str | torch.device = "cuda") -> dict:
+    """GOP driver on `device`: encode every frame in coding order
+    (reference samples/encode.py) into one bitstream. `waves=True` groups
+    the frames into dependency waves (parallel/gop.py) and encodes every
+    same-(type, depth) group of a wave as one batch (encode_wave_group), so
+    a hierarchical-B GOP trains its widest levels together. Returns the
+    byte count and each frame's result in coding order."""
+    from coolchic_tpu_torch.parallel.gop import gop_waves
+
+    dev = resolve_device(device)
+    os.makedirs(workdir, exist_ok=True)
+    cs = CodingStructure(n_frames=n_frames, intra_pos=list(intra_pos), p_pos=list(p_pos))
+    if verbose:
+        print(cs.pretty_string(), flush=True)
+
+    by_coding: dict[int, dict] = {}
+    if waves:
+        for wave in gop_waves(cs):
+            groups: dict[tuple, list[Frame]] = {}
+            for frame in wave:
+                groups.setdefault((frame.frame_type, frame.depth), []).append(frame)
+            for (ftype, depth), members in sorted(groups.items()):
+                cfg_args, preset = _frame_preset(members[0], lmbda, itr_scale,
+                                                 itr_floor=itr_floor)
+                if verbose:
+                    print(f"wave group ({ftype}, depth {depth}): " + ", ".join(
+                        f"{f.frame_type}{f.display_order}" for f in members), flush=True)
+                for frame, res in zip(members, encode_wave_group(
+                        members, cs, video_path, workdir, preset, cfg_args, seed=seed,
+                        verbose=verbose, device=dev)):
+                    by_coding[frame.coding_order] = res
+    else:
+        for coding_idx in range(cs.get_max_coding_order() + 1):
+            frame = cs.get_frame_from_coding_order(coding_idx)
+            cfg_args, preset = _frame_preset(frame, lmbda, itr_scale, itr_floor=itr_floor)
+            by_coding[coding_idx] = encode_one_frame(frame, cs, video_path, workdir, preset,
+                                                     cfg_args, seed=seed, verbose=verbose,
+                                                     device=dev)
+
+    results = [by_coding[i] for i in sorted(by_coding)]
+    payload = b"".join(r["payload"] for r in results)
+    with open(bitstream_path, "wb") as f:
+        f.write(payload)
+    return {"n_bytes": len(payload), "results": results}

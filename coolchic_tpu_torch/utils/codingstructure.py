@@ -117,3 +117,24 @@ class CodingStructure:
 
     def get_max_display_order(self) -> int:
         return max(f.display_order for f in self.frames)
+
+    def pretty_structure_diagram(self) -> str:
+        """ASCII GOP diagram: one row per depth, one column per display index."""
+        max_depth = max(f.depth for f in self.frames)
+        max_disp = self.get_max_display_order()
+        lines = []
+        for d in range(max_depth + 1):
+            row = ""
+            for i in range(max_disp + 1):
+                f = self.get_frame_from_display_order(i)
+                row += f"{f.frame_type}{f.coding_order:<3}" if f is not None and f.depth == d \
+                    else "    "
+            lines.append(row.rstrip())
+        return "\n".join(lines)
+
+    def pretty_string(self) -> str:
+        s = f"{'type':>5} {'coding':>7} {'display':>8} {'refs':>12} {'depth':>6}\n"
+        for f in sorted(self.frames, key=lambda f: f.coding_order):
+            s += (f"{f.frame_type:>5} {f.coding_order:>7} {f.display_order:>8} "
+                  f"{str(f.index_references):>12} {f.depth:>6}\n")
+        return s

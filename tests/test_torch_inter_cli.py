@@ -1,4 +1,4 @@
-"""The port's CLI on a clip: I0, P2 and B1 of a 3-frame 64x96 crop of
+"""The port's CLI on a clip: I0, P2 and B1 of a 3-frame 48x64 crop of
 BQSquare (yuv420, written to tmp_path), coding indices 0, 1, 2 into one
 workdir and one file, through coolchic_tpu_torch.cc_encode.main with
 --recipe debug --profile tpu --device cpu, residue lop (motion at the
@@ -27,8 +27,8 @@ torch.set_num_threads(2)
 @pytest.fixture(scope="module")
 def encoded(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("clip")
-    clip = tmp / "crop_96x64_60p_yuv420_8b.yuv"
-    for t, f in enumerate(load_frames((16, 40, 64, 96))):
+    clip = tmp / "crop_64x48_60p_yuv420_8b.yuv"
+    for t, f in enumerate(load_frames((16, 40, 48, 64))):
         write_yuv(FrameData(8, "yuv420", f.data), str(clip), append=t > 0)
     out, work = tmp / "out.cool", tmp / "work"
     rcs = []
@@ -69,10 +69,10 @@ def test_cc_decode_writes_every_frame(encoded, tmp_path):
     from coolchic_tpu_torch.io.io import load_frame_data_from_file
 
     _, out, _ = encoded
-    yuv = tmp_path / "dec_96x64_60p_yuv420_8b.yuv"
+    yuv = tmp_path / "dec_64x48_60p_yuv420_8b.yuv"
     assert cc_decode.main(["-i", str(out), "-o", str(yuv), "--device", "cpu"]) == 0
     want = p_decode_video(str(out), device="cpu")
-    assert yuv.stat().st_size == 3 * 64 * 96 * 3 // 2
+    assert yuv.stat().st_size == 3 * 48 * 64 * 3 // 2
     for disp in range(3):
         got = load_frame_data_from_file(str(yuv), disp)
         for k in ("y", "u", "v"):

@@ -40,7 +40,10 @@ def test_port_imports_no_jax():
     for name in ("cc_encode", "train.video", "train.soap", "parallel.encode_batch",
                  "nnquant.quantize", "bitstream.encode", "nnquant.rdoq", "train.logs",
                  "train.wasserstein", "utils.complexity", "models.warp", "models.flow",
-                 "models.globalmotion"):
+                 "models.globalmotion", "parallel.gop", "utils.results", "train.encode",
+                 "samples.getcodingstruct", "samples.encode", "samples.encode_batch",
+                 "samples.encode_sweep", "samples.encode_kodak_batch",
+                 "samples.decode_batch"):
         assert f"coolchic_tpu_torch.{name}" in res["modules"]
     assert res["leaked"] == []
     assert res["cudnn_tf32"] is False
@@ -62,8 +65,67 @@ def _encode_one_frame(tmp_path):
                             {"residue": intra_operating_points()["lop"]}, rdoq=False)
 
 
+def _encode_video(tmp_path):
+    from coolchic_tpu_torch.train.video import encode_video
+
+    return encode_video(str(REPO / "tests/data/D-BQSquare-3frames_224x128_60p_yuv420_8b.yuv"),
+                        str(tmp_path / "o.cool"), str(tmp_path), n_frames=3, intra_pos=[0],
+                        p_pos=[2], waves=True)
+
+
+def _encode_wave_group(tmp_path):
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.video import encode_wave_group
+    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
+    from coolchic_tpu_torch.utils.parsecli import intra_operating_points
+
+    cs = CodingStructure(n_frames=1, intra_pos=[0])
+    return encode_wave_group([cs.get_frame_from_coding_order(0)], cs, IMG, str(tmp_path),
+                             PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1),
+                             {"residue": intra_operating_points()["lop"]}, rdoq=False)
+
+
+def _encode_images_batched(tmp_path):
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.parallel.encode_batch import encode_images_batched
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args
+    from coolchic_tpu_torch.utils.parsecli import intra_operating_points
+
+    frame = load_frame_data_from_file(IMG)
+    cfgs = {"residue": coolchic_config_from_args(intra_operating_points()["lop"],
+                                                 frame.img_size)}
+    return encode_images_batched([frame], cfgs, PresetDebug(lmbda=1e-3, start_lr=1e-2,
+                                                            itr_main_training=1),
+                                 [str(tmp_path / "o.cool")])
+
+
+def _encode_image(tmp_path):
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.train.encode import encode_image_to_bitstream
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args
+    from coolchic_tpu_torch.utils.parsecli import intra_operating_points
+
+    frame = load_frame_data_from_file(IMG)
+    cfgs = {"residue": coolchic_config_from_args(intra_operating_points()["lop"],
+                                                 frame.img_size)}
+    return encode_image_to_bitstream(frame, cfgs, PresetDebug(lmbda=1e-3, start_lr=1e-2,
+                                                              itr_main_training=1),
+                                     str(tmp_path / "o.cool"))
+
+
+def _sample_encode_batch(tmp_path):
+    from coolchic_tpu_torch.samples import encode_batch
+
+    return encode_batch.main(["--inputs", IMG, "--out_dir", str(tmp_path), "--recipe",
+                              "debug"])
+
+
 @pytest.mark.parametrize("entry", ["decode_video", "decode_images", "resolve_device",
-                                   "cc_encode", "encode_one_frame"])
+                                   "cc_encode", "encode_one_frame", "encode_video",
+                                   "encode_wave_group", "encode_images_batched",
+                                   "encode_image_to_bitstream", "samples.encode_batch"])
 def test_default_device_refuses_cpu_fallback(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -77,7 +139,12 @@ def test_default_device_refuses_cpu_fallback(entry, tmp_path):
             "resolve_device": lambda: resolve_device("cuda"),
             "cc_encode": lambda: cc_encode.main(
                 ["-i", IMG, "-o", str(tmp_path / "o.cool"), "--no_rdoq"]),
-            "encode_one_frame": lambda: _encode_one_frame(tmp_path)}[entry]
+            "encode_one_frame": lambda: _encode_one_frame(tmp_path),
+            "encode_video": lambda: _encode_video(tmp_path),
+            "encode_wave_group": lambda: _encode_wave_group(tmp_path),
+            "encode_images_batched": lambda: _encode_images_batched(tmp_path),
+            "encode_image_to_bitstream": lambda: _encode_image(tmp_path),
+            "samples.encode_batch": lambda: _sample_encode_batch(tmp_path)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     assert not (tmp_path / "o.cool").exists()

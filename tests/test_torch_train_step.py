@@ -5,8 +5,9 @@ package's, with JAX's own noise draws injected into the port.
 Two kinds of comparison, because a SOAP/Adam trajectory from a fresh
 optimizer state is ill-conditioned:
 
-  - From a carried state, step by step (test_window_steps_from_carried_
-    state): JAX trains 12 steps, then runs one window of
+  - From a carried state, step by step (tests/test_torch_train_window.py:
+    test_window_steps_from_carried_state, on a 64x96 crop): JAX trains 12
+    steps, then runs one window of
     precondition_frequency + 1 = 11 steps, which holds the QR eigenbasis
     refresh (step 10) and one plain step after it. Before each step, JAX's
     parameters and SOAP state (step, exp_avg, exp_avg_sq, GG, Q of every
@@ -50,15 +51,12 @@ from coolchic_tpu.models.frame import frame_encoder_init as j_frame_init
 from coolchic_tpu.parallel.encode_batch import _batched_phase as j_batched_phase
 from coolchic_tpu.train.presets import TrainerPhase as JPhase
 from coolchic_tpu.train.train import EncoderMonitor as JMonitor
-from coolchic_tpu.train.train import _make_fns
-from coolchic_tpu.train.train import init_opt_state as j_init_opt_state
-from coolchic_tpu.train.train import seed_opt_state as j_seed_opt_state
 from coolchic_tpu.train.video import _frame_phase_key
 from coolchic_tpu.train.warmup import _train_phase_batched as j_warmup_phase
 from coolchic_tpu.utils.parsecli import INTRA_OPERATING_POINTS
 from coolchic_tpu.utils.parsecli import coolchic_config_from_args as j_cfg_from_args
 from coolchic_tpu_torch.models.frame import FrameConfig
-from coolchic_tpu_torch.models.params import soap_state_from_jax, tree_from_numpy
+from coolchic_tpu_torch.models.params import tree_from_numpy
 from coolchic_tpu_torch.parallel.encode_batch import _batched_phase as p_batched_phase
 from coolchic_tpu_torch.train.params import tree_leaves
 from coolchic_tpu_torch.train.presets import TrainerPhase as PPhase
@@ -113,9 +111,12 @@ class JaxNoise:
         return out
 
 
-def _setup(n, perturb):
-    """Frame configs, n stacked JAX-initialized params (numpy), target."""
+def _setup(n, perturb, crop=None):
+    """Frame configs, n stacked JAX-initialized params (numpy), target (the
+    image's top-left crop = (h, w) when given)."""
     frame = load_frame_data_from_file(IMG)
+    if crop is not None:
+        frame.data = np.ascontiguousarray(np.asarray(frame.data)[:, :, :crop[0], :crop[1]])
     jcfg = j_cfg_from_args(INTRA_OPERATING_POINTS["lop"], frame.img_size)
     pcfg = p_cfg_from_args(intra_operating_points()["lop"], frame.img_size)
     jf = JFrameConfig(coolchic_cfg={"residue": jcfg})
@@ -147,70 +148,6 @@ def _max_abs_diff(p_tree, j_tree) -> float:
         assert a.shape == b.shape
         worst = max(worst, float(np.abs(a - b).max()))
     return worst
-
-
-@pytest.mark.parametrize("n", [1, 3])
-def test_window_steps_from_carried_state(n):
-    jf, pf, stacked, target = _setup(n, perturb=True)
-    ph = JPhase(**(MAIN if n == 1 else WARMUP))
-    pfreq = ph.precondition_frequency_model
-
-    def j_fns(precondition_frequency):
-        return _make_fns(jf, ph.quantizer_noise_type, ph.quantizer_type, (("mse", 1.0),),
-                         ph.lmbda, tuple(ph.betas_model), tuple(ph.betas_latent),
-                         precondition_frequency, N_STEPS, False)
-
-    # JAX's plain step: a window of length 1 (no block); its refresh step:
-    # a window of one block of length 1 (precondition frequency 1)
-    fns, fns_refresh = j_fns(pfreq), j_fns(1)
-    tgt = jnp.asarray(target)
-    temp, noise = 0.3, (0.2 if n == 1 else 1.0)
-
-    def j_step(state, refresh):
-        params, opt, key = state
-        return (fns_refresh if refresh else fns)["train_window"](
-            params, opt, key, jnp.float32(LR), jnp.float32(temp), jnp.float32(noise), tgt,
-            None, None, length=1)
-
-    # JAX, per slot: seed (main phase only), 12 steps, then the window
-    slots = []
-    for i in range(n):
-        params = jax.tree_util.tree_map(lambda x: jnp.asarray(x[i]), stacked)
-        key = jax.random.PRNGKey(20 + i)
-        opt = j_init_opt_state(params, fns["hp_weight"], fns["hp_latent"])
-        if n == 1:
-            key, sub = jax.random.split(key)
-            g0 = fns["grad_fn"](params, sub, jnp.float32(temp), jnp.float32(noise), tgt,
-                                None, None)
-            opt = j_seed_opt_state(params, opt, g0, fns["hp_weight"])
-        slots.append(fns["train_window"](
-            params, opt, key, jnp.float32(LR), jnp.float32(temp), jnp.float32(noise), tgt,
-            None, None, length=12))
-
-    like = tree_from_numpy(_stack_np([p for p, _, _ in slots]), "cpu")
-    treedef = jax.tree_util.tree_structure(slots[0][0])
-    pfns = PhaseFns(pf, like, ph.quantizer_noise_type, ph.quantizer_type, ph.dist_weight,
-                    tuple(ph.betas_model), tuple(ph.betas_latent), pfreq)
-    level = torch.full((n,), noise)
-    lmbda = torch.full((n,), ph.lmbda)
-    targets = torch.tensor(target).expand(n, -1, -1, -1)
-    after_refresh = None
-    for t in range(1, N_STEPS + 1):
-        refresh = t % pfreq == 0
-        # the port's step from JAX's parameters and state; after the
-        # refresh step, from the port's own refreshed state
-        leaves = tree_leaves(tree_from_numpy(_stack_np([p for p, _, _ in slots]), "cpu"))
-        states = after_refresh or [
-            soap_state_from_jax(None if s[0] is None else _stack_np(s), "cpu")
-            for s in zip(*(treedef.flatten_up_to(o) for _, o, _ in slots))]
-        drawn = JaxNoise([k for _, _, k in slots])(
-            "step", pf, n, ph.quantizer_noise_type, level, pfns.need_noise)
-        leaves, states = pfns.step(leaves, states, drawn, temp, torch.tensor(LR), targets,
-                                   lmbda, refresh=refresh)
-        after_refresh = states if refresh else None
-        slots = [j_step(s, refresh) for s in slots]
-        worst = _max_abs_diff(leaves, _stack_np([p for p, _, _ in slots]))
-        assert worst <= 5e-2 * LR, (t, worst)
 
 
 def test_window_refresh_schedule(monkeypatch):
@@ -273,16 +210,38 @@ def test_warmup_phase_n3():
 
 
 @pytest.mark.parametrize("name", ["intra", "debug", "measure_speed"])
-@pytest.mark.parametrize("n_itr", [2000, 5000, 10000])
-def test_presets_match_jax(name, n_itr):
-    """The port's presets are the JAX package's phase for phase."""
+@pytest.mark.parametrize("n_itr", [2000, 5000, 10000, 150, 1000])
+def test_presets_match_jax(name, n_itr, monkeypatch):
+    """The port's presets are the JAX package's phase for phase. Under
+    2000 iterations the intra preset runs the relaxed-floor schedule: the
+    port's itr_floor keyword against the JAX package's COOLCHIC_ITR_FLOOR."""
     from coolchic_tpu.train.presets import AVAILABLE_PRESETS as J
     from coolchic_tpu_torch.train.presets import AVAILABLE_PRESETS as P
 
     kw = dict(lmbda=2e-4, start_lr=1e-2, itr_main_training=n_itr)
-    j, p = J[name](**kw), P[name](**kw)
+    p_kw = dict(kw)
+    if n_itr < 2000 and name == "intra":
+        monkeypatch.setenv("COOLCHIC_ITR_FLOOR", "100")
+        p_kw["itr_floor"] = 100
+    j, p = J[name](**kw), P[name](**p_kw)
     assert repr(p.training_phases) == repr(j.training_phases)
     assert repr(p.warmup) == repr(j.warmup)
+    for lam in (2e-4, 1e-3, 2e-2):
+        assert p.warmup_noise_parameter(lam) == j.warmup_noise_parameter(lam)
+
+
+def test_intra_floor_refuses_short_budgets():
+    """The intra preset refuses a budget under its floor: 2000 unless
+    itr_floor relaxes it; a preset built without itr_floor is unchanged."""
+    from coolchic_tpu_torch.train.presets import PresetIntra
+
+    kw = dict(lmbda=1e-3, start_lr=1e-2)
+    with pytest.raises(ValueError, match="2000"):
+        PresetIntra(**kw, itr_main_training=1999)
+    with pytest.raises(ValueError, match="100"):
+        PresetIntra(**kw, itr_main_training=99, itr_floor=100)
+    assert repr(PresetIntra(**kw, itr_main_training=2000, itr_floor=5).training_phases) == \
+        repr(PresetIntra(**kw, itr_main_training=2000).training_phases)
 
 
 def test_warmup_holds_schedules(monkeypatch):
