@@ -56,10 +56,21 @@ Phases, each fatal on failure:
      kernel == host C++;
   7. --tune wasserstein through the CLI (the same input, .ppm; common
      randomness, the serial trainer), checked as in 6c but for the grids:
-     a common-randomness file decodes on the host path; on its parameters
-     one training step's loss and gradients on the card against the CPU
-     (phase 5's bar), and ms per serial step over one validation window of
-     the debug main phase (CUDA events), with peak memory;
+     a common-randomness file decodes on the host path; its checkpoint
+     kept under chiprun_out/phase7/; on its parameters one training step
+     on the card, on the CPU in f32 and on the CPU in f64, each leaf's
+     gradient error against the f64 step printed for the card and the CPU.
+     The step's discrete branches, the ARM's hidden ReLUs and the 2^-16
+     floor, go either way within f32 rounding of their edge, and one such
+     branch can carry a leaf's gradient: so the card's loss is held within
+     1e-5 of the f64 step's; the largest rounding of the ARM's
+     pre-activations and of the symbols' probabilities on the card within
+     WASS_F64_FACTOR times the CPU f32 step's; and the worst leaf of the
+     card's step, with every such branch taken as f64 takes it, within
+     WASS_F64_FACTOR times the CPU f32 step's worst leaf, forced alike.
+     The branches each f32 step flips are printed; ms per
+     serial step over one validation window of the debug main phase (CUDA
+     events), with peak memory;
   8. video at full width: a synthetic 3-frame 512x768 yuv420 clip (phase
      3's first frame resampled at a pan of t * (3.25, -1.75) px and a 1 %
      zoom a frame about the centre, bilinear, edges replicated) encoded
@@ -95,11 +106,35 @@ Phases, each fatal on failure:
      kernel == host C++, each frame within phase 8's bars against the
      encoder's saved frame), ms per step of the G = 2 wave beside phase 8's
      B step, slot 0's first window against the frame stepping alone
-     (carried step by step, within 5e-2 * lr), peak memory.
+     (carried step by step, within 5e-2 * lr), peak memory;
+ 10. multi-device on the one card, the mesh (cuda:0, cuda:0): phase 3's
+     first frame tiled 4 x 4 (2048x3072, hop); (a) one training step with
+     the rows split over 2 space shards against the whole step (loss
+     within 1e-5 relative, worst leaf's gradient within STEP_GRAD_TOL),
+     a 4-step window (loss within 1e-3 relative, latents within 2e-4), ms
+     per step, host ms and peak of both, the IFCE context's ms beside the
+     rate's; (b) the decode-side float path on the mesh against the whole
+     eval forward (within 2e-5; make_spatial_synthesis's 8-bit image
+     within one code); (c) encode_one_frame whole and with the 2-shard mesh
+     (60 main steps, no warm-up, `tpu`, no RDOQ; cuDNN and torch in
+     deterministic mode, so that each run repeats): PSNR within 0.1 dB,
+     bytes within 5 %, seconds per stage; the sharded file's decode_video
+     (launches, routes, each level's route and kernel ms, every grid
+     kernel == host C++, the decoder's PSNR within 0.3 dB of the
+     encoder's); the CLI's --spatial_shard 2 refused on one card, auto 0;
+     (d) 4 of phase 3's frames (hop, debug): make_batched_window over a
+     (2, 1) data mesh against a 1-slice mesh from a carried state (every
+     coordinate within 5e-2 * lr), ms per step both ways;
+     encode_images_batched (`tpu`, no RDOQ, deterministic mode) of the 4
+     without a mesh, over the data mesh, and of the first 2 alone (the
+     mesh's first 2 files byte for byte theirs), PSNR and bytes image by
+     image, the mesh's files decoded through the kernel (every grid
+     kernel == host C++, PSNR within 0.3 dB); (e) the two-process run,
+     both ranks on the card, gloo.
 
-Prints the ablation line, the encode, RDOQ, Wasserstein, video, batched
-encode and wave lines, a
-{"kernels": [...]} line (launches: the default CLI's, phase 6c; every
+The whole run prints the ablation line, the encode, RDOQ, Wasserstein,
+video, batched encode, wave and multi-device lines, a {"kernels": [...]}
+line (launches: the default CLI's, phase 6c; every
 path's in launches_by_path), then the card line, and ends with
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA card or outside a checkout of the repo.
@@ -110,6 +145,7 @@ from __future__ import annotations
 import copy
 import glob
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,6 +175,11 @@ DESIGNS = (("team", 4), ("team", 8), ("first", 1))
 # not held: a symbol near the 2^-16 probability floor has a large gradient
 # whose f32 CDF difference is off by up to 2^-24 / 2^-16 on either device.
 STEP_GRAD_TOL = 1e-3
+# Phase 7: against an f64 step on the CPU, the card's f32 Wasserstein step
+# may be at most this factor further than the CPU's f32 step: on the worst
+# leaf, both steps taking the ARM's branches as f64 takes them, and on the
+# largest rounding of the ARM's pre-activations and probabilities.
+WASS_F64_FACTOR = 10.0
 ABLATE_PARTS = (("taps", 1), ("arm", 2), ("div", 4), ("search", 8), ("refill", 16),
                 ("barrier", 32))
 
@@ -257,20 +298,8 @@ def check_file_grids(out: Path, dev) -> list:
     from coolchic_tpu_torch.bitstream import codec
     from coolchic_tpu_torch.bitstream.decode import _decode_items_batched
     from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks
-    from coolchic_tpu_torch.bitstream.headers import (
-        TPU_PROFILE_MAGIC,
-        CoolChicHeader,
-        FrameHeader,
-        VideoHeader,
-    )
 
-    rest = out.read_bytes()
-    check(rest.startswith(TPU_PROFILE_MAGIC), f"{out.name} is not tpu-profile")
-    rest = rest[len(TPU_PROFILE_MAGIC):]
-    _, rest = VideoHeader.read(rest)
-    _, rest = FrameHeader.read(rest)
-    ch, rest = CoolChicHeader.read(rest)
-    bnn, blat = rest[:ch.nn_n_bytes], rest[ch.nn_n_bytes:ch.nn_n_bytes + ch.n_bytes_latent]
+    ch, bnn, blat = file_header(out)
     cfg = ch.to_config()
     blocks = _parse_level_blocks(cfg, blat)
     k_levels = [lv for lv in range(cfg.n_latent_grids) if blocks[lv]["n_streams"] == 128]
@@ -284,11 +313,13 @@ def check_file_grids(out: Path, dev) -> list:
     return k_levels
 
 
-def step_on(d, params, fcfg, tgt, phase, noise, cr_on=None, refs=None):
+def step_on(d, params, fcfg, tgt, phase, noise, cr_on=None, refs=None, dtype=None):
     """One training step's loss and gradients of `params` (one image,
     numpy) on device d: the phase's quantizer and loss, the given noise
     draws; `cr_on(d)` gives the common-randomness grids on d; `refs`: a
-    P/B frame's dense [1, 3, H, W] references (numpy)."""
+    P/B frame's dense [1, 3, H, W] references (numpy). `dtype`
+    (torch.float64) runs the whole step at that precision, params, noise,
+    target and constants alike; f32 by default."""
     import numpy as np
     import torch
 
@@ -297,14 +328,19 @@ def step_on(d, params, fcfg, tgt, phase, noise, cr_on=None, refs=None):
     from coolchic_tpu_torch.train.params import tree_leaves, tree_map
     from coolchic_tpu_torch.train.train import PhaseFns
 
-    like = tree_from_numpy(tree_map(lambda x: np.asarray(x)[None], params), d)
+    dt = dtype or torch.float32
+    like = tree_map(lambda x: x.to(dt) if x.is_floating_point() else x,
+                    tree_from_numpy(tree_map(lambda x: np.asarray(x)[None], params), d))
+    cr = None if cr_on is None else {k: None if v is None else [g.to(dt) for g in v]
+                                     for k, v in cr_on(d).items()}
     fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
                    phase.dist_weight, tuple(phase.betas_model), tuple(phase.betas_latent),
-                   phase.precondition_frequency_model, cr=None if cr_on is None else cr_on(d))
-    args = (tree_leaves(like), {k: [x.to(d) for x in v] for k, v in noise.items()},
-            phase.softround_temperature[0], _target_from_frame(tgt, d),
-            torch.full((1,), phase.lmbda, device=d),
-            None if refs is None else [torch.as_tensor(r, device=d) for r in refs])
+                   phase.precondition_frequency_model, cr=cr)
+    args = (tree_leaves(like), {k: [x.to(d, dt) for x in v] for k, v in noise.items()},
+            phase.softround_temperature[0], tree_map(lambda x: x.to(dt),
+                                                     _target_from_frame(tgt, d)),
+            torch.full((1,), phase.lmbda, dtype=dt, device=d),
+            None if refs is None else [torch.as_tensor(r, device=d).to(dt) for r in refs])
     with torch.no_grad():
         loss = float(fns.loss(*args).loss[0])
     return loss, [None if g is None else g.cpu().double() for g in fns.grads(*args)]
@@ -325,6 +361,19 @@ def grad_errors(params, grads, ref):
         worst_l2 = max(worst_l2, (float((a - b).norm() / b.norm()), path))
         worst_max = max(worst_max, float((a - b).abs().max() / b.abs().max()))
     return worst_l2, worst_max
+
+
+def leaf_errors(params, grads, ref) -> dict:
+    """{leaf path: |g - ref|_2 / |ref|_2} over the leaves whose reference
+    gradient is not zero."""
+    import numpy as np
+
+    from coolchic_tpu_torch.train.params import tree_flatten_with_path, tree_map
+
+    batched = tree_map(lambda x: np.asarray(x)[None], params)
+    return {path: float((a.double() - b).norm() / b.norm())
+            for (path, _), a, b in zip(tree_flatten_with_path(batched), grads, ref)
+            if b is not None and float(b.abs().max()) != 0.0}
 
 
 def profile_steps(tag: str, step, n: int = 3) -> dict:
@@ -685,6 +734,174 @@ def rdoq_phase(dev, p5: Path, work: Path) -> dict:
             "after": after, "probes": probes, "cli": cli}
 
 
+def _arm_rate_in(seen: list, branches=None):
+    """A stand-in for models/coolchic.py:_arm_rate (the ARM, its
+    reparameterization and the rate). Without `branches` it records its
+    inputs in `seen`. With `branches` (the hidden ReLUs' on/off masks
+    [n_hidden, n_latents, C] and the above-the-floor mask [n_latents] of
+    another step) it computes the same function, but every ReLU and the
+    2^-16 floor's max take those branches."""
+    import torch
+
+    import coolchic_tpu_torch.models.coolchic as ccm
+    from coolchic_tpu_torch.core.constants import MIN_PROBA
+    from coolchic_tpu_torch.core.laplace import _LOG2, laplace_cdf
+    from coolchic_tpu_torch.models.arm import _linear, arm_reparameterize
+
+    arm_rate = ccm._arm_rate
+
+    def run(arm, lat, ctx):
+        if branches is None:
+            seen.append((arm, lat.detach(), ctx.detach()))
+            return arm_rate(arm, lat, ctx)
+        relu_on, above = (m.to(ctx.device) for m in branches)
+        y = ctx
+        for lay, on in zip(arm["layers"][:-1], relu_on):
+            y = (_linear(y, lay) + y) * on.to(y.dtype)[None]
+        y = _linear(y, arm["layers"][-1])
+        if "stabiliser" in arm:
+            y = y + _linear(ctx, arm["stabiliser"])
+        mu, scale = arm_reparameterize(y)
+        p = laplace_cdf(lat + 0.5, mu, scale) - laplace_cdf(lat - 0.5, mu, scale)
+        return -torch.log(torch.where(above[None], p, p.new_full((), MIN_PROBA))) / _LOG2
+
+    return run
+
+
+def _arm_branches(arm, lat, ctx):
+    """The ARM's hidden pre-activations [n_hidden, n_latents, C] and each
+    symbol's probability before the 2^-16 floor, recomputed from captured
+    inputs on their device (models/arm.py:arm_apply's trunk)."""
+    import torch
+
+    from coolchic_tpu_torch.core.laplace import laplace_cdf
+    from coolchic_tpu_torch.models.arm import _linear, arm_apply, arm_reparameterize
+
+    with torch.no_grad():
+        y, pre = ctx, []
+        for lay in arm["layers"][:-1]:
+            pre.append(_linear(y, lay) + y)
+            y = torch.relu(pre[-1])
+        mu, scale = arm_reparameterize(arm_apply(arm, ctx))
+        p = laplace_cdf(lat + 0.5, mu, scale) - laplace_cdf(lat - 0.5, mu, scale)
+    return torch.stack(pre)[:, 0].double().cpu(), p[0].double().cpu()
+
+
+def wasserstein_step_check(dev, params, fcfg, tgt, phase) -> dict:
+    """Phase 7's step check on one image's parameters: one Wasserstein
+    training step on the card, on the CPU in f32 and on the CPU in f64,
+    with the same noise, then both f32 steps again with the ARM's discrete
+    branches (every hidden ReLU, and the 2^-16 floor's max, which splits
+    the gradient at equality) taken as the f64 step takes them. A branch
+    whose exact argument sits within f32 rounding of its edge goes either
+    way on either device, and one symbol's branch can carry a leaf, so
+    the gradient is held on the forced steps and the branches by their
+    rounding. Holds the card's loss within 1e-5 of the f64 step's; the
+    card's largest rounding of the ARM's pre-activations (|z - z64|) and
+    of the symbols' probabilities (|p - p64|) within WASS_F64_FACTOR times
+    the CPU f32 step's (a branch the card flips lies within it); and the
+    forced card step's worst leaf within WASS_F64_FACTOR times the forced
+    CPU step's. Prints each leaf's error of the unforced steps, the
+    branches each f32 step takes otherwise than f64, and the element of
+    the card's worst unforced leaf that carries most of its error."""
+    import numpy as np
+    import torch
+
+    import coolchic_tpu_torch.models.coolchic as ccm
+    from coolchic_tpu_torch.core.constants import MIN_PROBA
+    from coolchic_tpu_torch.models.frame import frame_cr_grids
+    from coolchic_tpu_torch.train.train import TorchNoise
+
+    noise = TorchNoise(torch.Generator().manual_seed(0))(
+        "step", fcfg, 1, phase.quantizer_noise_type,
+        torch.tensor([phase.noise_parameter[0]]), True)
+    cr_on = lambda d: frame_cr_grids(fcfg, d)   # noqa: E731
+    cpu, arm_rate = torch.device("cpu"), ccm._arm_rate
+    steps, seconds, seen = {}, {}, {}
+    for name, d, dt in (("f64", cpu, torch.float64), ("card", dev, None), ("cpu", cpu, None),
+                        ("card, f64's branches", dev, None),
+                        ("cpu, f64's branches", cpu, None)):
+        seen[name] = []
+        if name.endswith("f64's branches"):
+            ccm._arm_rate = _arm_rate_in(seen[name], (z64 > 0, p64 > MIN_PROBA))
+        else:
+            ccm._arm_rate = _arm_rate_in(seen[name])
+        t0 = time.time()
+        try:
+            steps[name] = step_on(d, params, fcfg, tgt, phase, noise, cr_on, dtype=dt)
+        finally:
+            ccm._arm_rate = arm_rate
+        seconds[name] = time.time() - t0
+        if name == "f64":
+            z64, p64 = _arm_branches(*seen["f64"][0])
+    g64 = steps["f64"][1]
+    errs = {k: leaf_errors(params, v[1], g64) for k, v in steps.items() if k != "f64"}
+    worst = {k: max((v, p) for p, v in e.items()) for k, e in errs.items()}
+    (l2, l2_path), mx = grad_errors(params, steps["card"][1], steps["cpu"][1])
+
+    # the branches each f32 step takes otherwise than f64, by symbol (the
+    # ARM rates every grid of the unsharded step in one call, in grid
+    # order), and each step's largest rounding of the branches' arguments
+    shapes = [np.shape(x) for x in params["residue"]["latents"]]
+    starts = np.cumsum([0] + [h * w for h, w in shapes])
+
+    def where(i):
+        g = int(np.searchsorted(starts, i, side="right") - 1)
+        return (g, *divmod(int(i - starts[g]), shapes[g][1]))
+
+    branches, rounding = {}, {}
+    for k in ("card", "cpu"):
+        z, p = _arm_branches(*seen[k][0])
+        rounding[k] = {"z": float((z - z64).abs().max()), "p": float((p - p64).abs().max())}
+        relu = [(lay, *where(i), float(z64[lay, i, u]), float(z[lay, i, u]))
+                for lay, i, u in torch.nonzero((z > 0) != (z64 > 0)).tolist()]
+        floor = [(*where(i), float(p64[i] / MIN_PROBA), float(p[i] / MIN_PROBA))
+                 for i in torch.nonzero(((p > MIN_PROBA) != (p64 > MIN_PROBA))
+                                        | ((p == MIN_PROBA) != (p64 == MIN_PROBA))).flatten()
+                 .tolist()]
+        branches[k] = {"relu (layer, grid, row, col, z64, z)": relu,
+                       "floor (grid, row, col, p64 / floor, p / floor)": floor}
+    # the element of the card's worst leaf that carries most of its error
+    kept = [(a, b) for a, b in zip(steps["card"][1], g64)
+            if b is not None and float(b.abs().max()) != 0.0]
+    card_g, ref_g = kept[list(errs["card"]).index(worst["card"][1])]
+    diff = (card_g - ref_g).flatten()
+    top = int(diff.abs().argmax())
+    top_el = {"index": [int(v) for v in np.unravel_index(top, tuple(ref_g.shape))],
+              "share_of_err2": float(diff[top] ** 2 / diff.norm() ** 2),
+              "card": float(card_g.flatten()[top]), "f64": float(ref_g.flatten()[top])}
+    fc, fp = worst["card, f64's branches"], worst["cpu, f64's branches"]
+    ratio, forced_ratio = worst["card"][0] / worst["cpu"][0], fc[0] / fp[0]
+    print("[7] per leaf |g - g64|_2/|g64|_2, card / CPU f32: " + "; ".join(
+        f"{k} {errs['card'][k]:.2e}/{errs['cpu'][k]:.2e}" for k in errs["card"]), flush=True)
+    print(f"[7] one Wasserstein step: loss card {steps['card'][0]:.8f}, CPU f32 "
+          f"{steps['cpu'][0]:.8f}, CPU f64 {steps['f64'][0]:.8f}; worst leaf against f64, "
+          f"the ARM's ReLUs and floor on f64's branches: card {fc[0]:.2e} ({fc[1]}), CPU f32 "
+          f"{fp[0]:.2e} ({fp[1]}), ratio {forced_ratio:.2f} (bar {WASS_F64_FACTOR:g}); on "
+          f"their own branches: card {worst['card'][0]:.2e} ({worst['card'][1]}), CPU f32 "
+          f"{worst['cpu'][0]:.2e} ({worst['cpu'][1]}), ratio {ratio:.2f}; largest rounding "
+          f"of the ARM's pre-activations card {rounding['card']['z']:.2e} / CPU "
+          f"{rounding['cpu']['z']:.2e}, of the probabilities {rounding['card']['p']:.2e} / "
+          f"{rounding['cpu']['p']:.2e}; the card's worst leaf's top element {top_el}; card "
+          f"against CPU f32 {l2:.2e} ({l2_path}), max-norm {mx:.2e}; the CPU steps took "
+          f"{seconds['cpu']:.1f} s (f32) and {seconds['f64']:.1f} s (f64)", flush=True)
+    print(f"[7] the ARM's branches taken otherwise than f64: card {branches['card']}; CPU f32 "
+          f"{branches['cpu']}", flush=True)
+    check(abs(steps["card"][0] - steps["f64"][0]) <= 1e-5 * abs(steps["f64"][0]),
+          f"step loss card {steps['card'][0]} f64 {steps['f64'][0]}")
+    for k, what in (("z", "the ARM's pre-activations"), ("p", "the symbols' probabilities")):
+        check(rounding["card"][k] <= WASS_F64_FACTOR * rounding["cpu"][k],
+              f"rounding of {what}: card {rounding['card'][k]:.2e} from the f64 step, more "
+              f"than {WASS_F64_FACTOR:g} x the CPU f32 step's {rounding['cpu'][k]:.2e}")
+    check(fc[0] <= WASS_F64_FACTOR * fp[0],
+          f"step gradient on f64's branches {fc[1]}: card {fc[0]:.2e} from the f64 step, "
+          f"more than {WASS_F64_FACTOR:g} x the CPU f32 step's {fp[0]:.2e}")
+    return {"cpu_step_s": seconds["cpu"], "f64_step_s": seconds["f64"], "grad_l2": l2,
+            "grad_max": mx, "f64_worst": worst, "f64_ratio": ratio,
+            "f64_forced_ratio": forced_ratio, "rounding": rounding, "branches": branches,
+            "worst_leaf_top": top_el, "f64_leaf_errors": errs}
+
+
 def wasserstein_phase(dev, src: Path, work: Path) -> dict:
     """Phase 7: --tune wasserstein through the CLI (512x768 hop, debug
     recipe, .ppm), then on its parameters ms per serial training step
@@ -717,23 +934,14 @@ def wasserstein_phase(dev, src: Path, work: Path) -> dict:
     phase = PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1,
                         dist_weight=dist).training_phases[0]
 
-    # one step, card against CPU, the phase-5 bar on the worst leaf
-    noise = TorchNoise(torch.Generator().manual_seed(0))(
-        "step", fcfg, 1, phase.quantizer_noise_type,
-        torch.tensor([phase.noise_parameter[0]]), True)
-    t0 = time.time()
-    l_cpu, g_cpu = step_on(torch.device("cpu"), params, fcfg, tgt, phase, noise,
-                           lambda d: frame_cr_grids(fcfg, d))
-    cpu_s = time.time() - t0
-    l_dev, g_dev = step_on(dev, params, fcfg, tgt, phase, noise,
-                           lambda d: frame_cr_grids(fcfg, d))
-    (l2, l2_path), mx = grad_errors(params, g_dev, g_cpu)
-    print(f"[7] one Wasserstein step card vs cpu: loss {l_dev:.8f} vs {l_cpu:.8f}; worst "
-          f"leaf |diff|_2/|cpu|_2 {l2:.2e} ({l2_path}), worst max|diff|/max|cpu| {mx:.2e} "
-          f"(tolerance {STEP_GRAD_TOL:.0e} on the first); the CPU step took {cpu_s:.1f} s",
-          flush=True)
-    check(abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu), f"step loss card {l_dev} cpu {l_cpu}")
-    check(l2 <= STEP_GRAD_TOL, f"step gradient {l2_path}: card vs cpu {l2:.2e}")
+    # The encode's checkpoint is kept: the step below is computed from it.
+    keep = ROOT / "chiprun_out" / "phase7"
+    keep.mkdir(parents=True, exist_ok=True)
+    kept = keep / f"frame_encoder_{time.strftime('%Y%m%d-%H%M%S')}.npz"
+    shutil.copy(work / "cli" / "0000-frame_encoder.npz", kept)
+
+    step = wasserstein_step_check(dev, params, fcfg, tgt, phase)
+    print(f"[7] checkpoint kept as {kept.relative_to(ROOT)}", flush=True)
 
     # ms per serial training step: one validation window of the debug main
     # phase (min(freq_valid, max_itr) steps), SOAP seeded as train() does
@@ -771,8 +979,7 @@ def wasserstein_phase(dev, src: Path, work: Path) -> dict:
           f"events; first {step_ms[0]:.2f} ms), host {host_ms:.2f} ms per step; peak "
           f"{peak / 2**30:.2f} GiB", flush=True)
     return {"cli": cli, "step_ms": statistics.median(step_ms), "host_step_ms": host_ms,
-            "window_steps": n_steps, "step_peak_bytes": peak, "cpu_step_s": cpu_s,
-            "grad_l2": l2, "grad_max": mx}
+            "window_steps": n_steps, "step_peak_bytes": peak, **step}
 
 def synthetic_clip(frame, path: Path, n_frames: int = 3) -> None:
     """A yuv420 8-bit clip from one RGB frame: frame t is the image
@@ -1559,6 +1766,472 @@ def wave_phase(dev, frame, p8: Path, work: Path, b_step_ms: float) -> dict:
             "step_profile": steps["profile"]}
 
 
+
+def file_header(path: Path):
+    """(cool-chic header, nn bytes, latent bytes) of a one-frame `tpu` file."""
+    from coolchic_tpu_torch.bitstream.headers import (
+        TPU_PROFILE_MAGIC,
+        CoolChicHeader,
+        FrameHeader,
+        VideoHeader,
+    )
+
+    rest = path.read_bytes()
+    check(rest.startswith(TPU_PROFILE_MAGIC), f"{path.name} is not tpu-profile")
+    rest = rest[len(TPU_PROFILE_MAGIC):]
+    _, rest = VideoHeader.read(rest)
+    _, rest = FrameHeader.read(rest)
+    ch, rest = CoolChicHeader.read(rest)
+    return ch, rest[:ch.nn_n_bytes], rest[ch.nn_n_bytes:ch.nn_n_bytes + ch.n_bytes_latent]
+
+
+def level_routes(path: Path, dev) -> list:
+    """Each latent grid of a `tpu` file: its streams, its route (the kernel
+    or the host C++) and, for a 128-stream grid the kernel does not take,
+    why; the kernel's ms on each level it takes (CUDA events, median)."""
+    from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks, prepare_batch
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+
+    ch, bnn, blat = file_header(path)
+    cfg = ch.to_config()
+    blocks = _parse_level_blocks(cfg, blat)
+    batch = prepare_batch([(ch, bnn, blat)], dev)
+    _, grids = batch.run()
+    decoded = dict(enumerate(grids))
+    dim = cfg.spatial_context_arm + (cfg.output_feature_ifce if cfg.flag_ifce else 0)
+    timed = {}
+    for li, level in enumerate(batch.device_levels):
+        tensors, kw = batch.kernel_inputs(li, decoded)
+        timed[level] = (cuda_ms(lambda: wfd.wavefront_decode(*tensors, **kw)),
+                        wfd.n_wavefronts(kw["h"], kw["w"]))
+    out = []
+    for level, (h, w) in enumerate(cfg.size_per_latent):
+        row = {"level": level, "shape": [h, w], "streams": blocks[level]["n_streams"],
+               "route": "kernel" if level in batch.device_levels else "host C++"}
+        if level in timed:
+            row.update(kernel_ms=timed[level][0], wavefronts=timed[level][1],
+                       step=wfd.tpu_wavefront_step(w))
+        elif row["streams"] == wfd.LANES:
+            row["why"] = ("raster order (w <= 9)" if w <= wfd.MASK else
+                          "ARM too wide" if dim > wfd.MAX_ARM_DIM else
+                          f"shared memory {wfd.kernel_smem_bytes(w, dim, cfg.n_hidden_layers_arm)}"
+                          f" B > {wfd.SMEM_LIMIT_BYTES}" if not wfd.kernel_eligible(
+                              h, w, dim, cfg.n_hidden_layers_arm)
+                          else "a coarser level is on the host")
+        out.append(row)
+    return out
+
+
+def main_only_preset(steps: int = 60, freq_valid: int = 20):
+    """Phase 10c's preset: no warm-up, one main phase of `steps` (softround,
+    gaussian noise, held temperature and noise), as tests/test_spatial_cli.py's
+    TinyPreset at a longer budget."""
+    from coolchic_tpu_torch.train.presets import Preset, TrainerPhase, Warmup
+
+    class MainOnly(Preset):
+        def __post_init__(self):
+            self.preset_name = "phase10"
+            self.training_phases = [TrainerPhase(
+                lr=self.start_lr, max_itr=steps, freq_valid=freq_valid,
+                quantizer_type="softround", quantizer_noise_type="gaussian",
+                softround_temperature=(0.3, 0.3), noise_parameter=(0.25, 0.25),
+                lmbda=self.lmbda)]
+            self.warmup = Warmup([])
+
+    return MainOnly(lmbda=1e-3, start_lr=1e-2, itr_main_training=steps)
+
+
+def data_mesh_phase(dev, four: list, work: Path) -> dict:
+    """Phase 10d: the data mesh (cuda:0, cuda:0) over 4 512x768 frames;
+    make_batched_window split 2 + 2 against unsplit from a carried state,
+    and encode_images_batched unsplit, over the mesh and of the first 2
+    alone."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.bitstream.decode import decode_images
+    from coolchic_tpu_torch.models.frame import FrameConfig
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+    from coolchic_tpu_torch.parallel.batch import (
+        batched_init,
+        make_batched_window,
+        make_mesh,
+        phase_key,
+    )
+    from coolchic_tpu_torch.parallel.encode_batch import encode_images_batched
+    from coolchic_tpu_torch.train.loss import dist_to_db
+    from coolchic_tpu_torch.train.params import tree_leaves
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.train import EncoderMonitor
+    from coolchic_tpu_torch.utils.parsecli import (
+        coolchic_config_from_args,
+        intra_operating_points,
+    )
+
+    work.mkdir(parents=True, exist_ok=True)
+    data_mesh = make_mesh(devices=[dev, dev], space=1)
+    one_slice = make_mesh(devices=[dev], space=1)
+    cfgs = {"residue": coolchic_config_from_args(intra_operating_points()["hop"],
+                                                 four[0].img_size)}
+    fcfg4 = FrameConfig(coolchic_cfg=cfgs)
+    preset = PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1)
+    phase = preset.training_phases[0]
+    tg4 = torch.as_tensor(np.concatenate([np.asarray(f.data, np.float32) for f in four]),
+                          device=dev)
+    args = (phase.lr, phase.softround_temperature[0], phase.noise_parameter[0], tg4)
+    n_win = 10
+
+    def gens(seed):
+        return [torch.Generator(device=dev).manual_seed(seed + i) for i in range(4)]
+
+    # make_batched_window from a carried state (one window of the 4 slots
+    # from batched_init). At cuDNN's defaults: ms per step split 2 + 2 and
+    # unsplit, each timed on its second call. In deterministic mode: each
+    # data slice's chunk against its own 2 slots alone on a 1-slice mesh,
+    # which compute at the chunk's batch size (1e-6, as
+    # tests/test_torch_batch_mesh.py); the split against the unsplit 4 is
+    # reported, not held: a batch of 2 rounds otherwise than a batch of 4
+    # on the card, and SOAP's normalized update in a carried eigenbasis
+    # turns that rounding into up to ~1e-3 in a window.
+    p4, o4 = batched_init(fcfg4, phase, 4, seed=0, device=dev)
+    p4, o4, _ = make_batched_window(fcfg4, phase_key(phase), n_win, one_slice)(
+        p4, o4, gens(20), *args)
+
+    def worst(x, y):
+        return max(float((u - v).abs().max()) for u, v in zip(tree_leaves(x), tree_leaves(y)))
+
+    win, ms_d = {}, {}
+    for name, m in (("unsplit", one_slice), ("split", data_mesh)):
+        window = make_batched_window(fcfg4, phase_key(phase), n_win, m)
+        win[name] = []
+        for _ in range(2):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            win[name].append(window(p4, o4, gens(40), *args)[0])
+            e1.record()
+            torch.cuda.synchronize()
+        ms_d[name] = e0.elapsed_time(e1) / n_win
+    spread = {"unsplit run to run": worst(*win["unsplit"]),
+              "split against unsplit": worst(win["split"][1], win["unsplit"][1])}
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    split = make_batched_window(fcfg4, phase_key(phase), n_win, data_mesh)(
+        p4, o4, gens(40), *args)[0]
+    spread["split against unsplit, deterministic"] = worst(split, make_batched_window(
+        fcfg4, phase_key(phase), n_win, one_slice)(p4, o4, gens(40), *args)[0])
+    worst_d = 0.0
+    for a, b in ((0, 2), (2, 4)):
+        alone = make_batched_window(fcfg4, phase_key(phase), n_win, one_slice)(
+            _sliced(p4, slice(a, b)), _sliced(o4, slice(a, b)), gens(40)[a:b], *args[:3],
+            tg4[a:b])[0]
+        worst_d = max(worst_d, worst(_sliced(split, slice(a, b)), alone))
+    print(f"[10d] make_batched_window of 4 slots from a carried state, {n_win} steps, over the "
+          f"(2, 1) data mesh (deterministic): each slice's chunk against its 2 slots alone, "
+          f"worst coordinate {worst_d:.2e} (bar 1e-6); worst coordinate " + ", ".join(
+              f"{k} {v:.2e}" for k, v in spread.items()) + f"; a step at G = 4 split 2 + 2 "
+          f"{ms_d['split']:.2f} ms, unsplit {ms_d['unsplit']:.2f} ms (cuDNN's defaults, CUDA "
+          f"events, mean of the window)", flush=True)
+    check(worst_d <= 1e-6, f"10d split window {worst_d}")
+    del p4, o4, win, split, alone, tg4
+    torch.cuda.empty_cache()
+
+    # encode_images_batched, still in deterministic mode (as 10c, so that
+    # each call repeats): the 4 images unsplit, over the data mesh, and the
+    # first slice's 2 images alone (slot i seeds from (seed, i), so the
+    # mesh's first slice computes what a batch of those 2 does): the first
+    # slice's files must be those of the 2 alone, byte for byte; the
+    # 4-image call differs from the mesh's by the batch size's rounding,
+    # which a fresh trajectory amplifies (reported, not held).
+    runs = (("unsplit", four, None), ("mesh", four, data_mesh), ("first 2 alone", four[:2], None))
+    batch = {}
+    for name, imgs, m in runs:
+        paths = [str(work / f"{name.replace(' ', '_')}{k}.cool") for k in range(len(imgs))]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = encode_images_batched(imgs, cfgs, preset, paths, seed=0, verbose=False,
+                                    rdoq=False, profile="tpu",
+                                    monitor=EncoderMonitor(device=dev), device=dev, mesh=m)
+        torch.cuda.synchronize()
+        batch[name] = {"wall_s": time.time() - t0, "paths": paths,
+                       "psnr_db": [r["psnr_db"] for r in res],
+                       "n_bytes": [r["n_bytes"] for r in res]}
+    torch.backends.cudnn.deterministic = det[0]
+    torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    for k in range(2):
+        check(Path(batch["mesh"]["paths"][k]).read_bytes()
+              == Path(batch["first 2 alone"]["paths"][k]).read_bytes(),
+              f"10d image {k}: the mesh's file differs from the 2 images' alone")
+    wfd.KERNEL.launches = 0
+    decoded, d_routes = decode_images(batch["mesh"]["paths"], device=dev, return_routes=True)
+    torch.cuda.synchronize()
+    d_launches = wfd.KERNEL.launches
+    check(all(r["path"] == "device" for r in d_routes), f"10d routes {d_routes}")
+    for k, (p, dec, f) in enumerate(zip(batch["mesh"]["psnr_db"], decoded, four)):
+        p_d = dist_to_db(float(np.mean(np.square(np.asarray(dec.data, np.float64)
+                                                 - np.asarray(f.data, np.float64)))))
+        check(abs(p_d - p) < 0.3, f"10d image {k}: decoder {p_d:.3f} vs encoder {p:.3f}")
+    for p in batch["mesh"]["paths"]:
+        check_file_grids(Path(p), dev)
+    print(f"[10d] encode_images_batched of 4 {four[0].img_size[0]}x{four[0].img_size[1]} "
+          f"images (deterministic cuDNN), image by image unsplit / data mesh (2, 1): psnr "
+          + ", ".join(f"{x:.3f} / {y:.3f}" for x, y in zip(batch["unsplit"]["psnr_db"],
+                                                          batch["mesh"]["psnr_db"]))
+          + " dB, bytes " + ", ".join(f"{x} / {y}" for x, y in zip(batch["unsplit"]["n_bytes"],
+                                                                 batch["mesh"]["n_bytes"]))
+          + f"; {batch['unsplit']['wall_s']:.1f} / {batch['mesh']['wall_s']:.1f} s; the first "
+          f"2 alone {batch['first 2 alone']['wall_s']:.1f} s, files identical to the mesh's "
+          f"first slice; the mesh's files decode in {d_launches} launches, every grid kernel "
+          f"== host C++", flush=True)
+    check(d_launches > 0, "10d: decode_images launched no wavefront_decode kernel")
+    return {"window_worst": worst_d, "window_spread": spread, "window_steps": n_win,
+            "step_ms_split": ms_d["split"], "step_ms_whole": ms_d["unsplit"],
+            "encodes": {k: {kk: vv for kk, vv in v.items() if kk != "paths"}
+                        for k, v in batch.items()},
+            "decode_launches": d_launches}
+
+
+def multi_device_phase(dev, frames: list, work: Path) -> dict:
+    """Phase 10: multi-device on one card, the mesh (cuda:0, cuda:0).
+    (a) one 2048x3072 hop training step split over 2 space shards against
+    the whole step; a 4-step window; ms per step, host ms and peak of both;
+    (b) make_spatial_synthesis against the whole eval forward; (c)
+    encode_one_frame whole and with the 2-shard mesh (60 steps, no warm-up,
+    `tpu`, no RDOQ, deterministic algorithms), the sharded file decoded
+    through the kernel; the CLI's
+    --spatial_shard refusal and `auto`; (d) make_batched_window and
+    encode_images_batched of 4 512x768 frames over a (2, 1) data mesh; (e)
+    the two-process run (gloo, both ranks on the card)."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch import cc_encode
+    from coolchic_tpu_torch.bitstream.decode import decode_video
+    from coolchic_tpu_torch.io.framedata import FrameData
+    from coolchic_tpu_torch.io.io import save_frame_data_to_file
+    from coolchic_tpu_torch.models.coolchic import (
+        coolchic_forward,
+        ifce_context,
+        latent_rate,
+        quantize_latents,
+    )
+    from coolchic_tpu_torch.models.frame import (
+        FrameConfig,
+        frame_encoder_forward,
+        frame_encoder_init,
+    )
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+    from coolchic_tpu_torch.parallel.batch import make_mesh, make_spatial_synthesis
+    from coolchic_tpu_torch.parallel.dcn import launch_dcn_dryrun
+    from coolchic_tpu_torch.parallel.spatial import resolve_spatial_shard
+    from coolchic_tpu_torch.train.loss import dist_to_db
+    from coolchic_tpu_torch.train.params import tree_flatten_with_path, tree_leaves, tree_map
+    from coolchic_tpu_torch.train.train import PhaseFns, TorchNoise, init_opt_state
+    from coolchic_tpu_torch.train.video import encode_one_frame
+    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
+    from coolchic_tpu_torch.utils.parsecli import (
+        coolchic_config_from_args,
+        intra_operating_points,
+    )
+
+    work.mkdir()
+    mesh = make_mesh(devices=[dev, dev], space=2)
+    f0 = frames[0]
+    big = FrameData(f0.bitdepth, f0.frame_data_type,
+                    np.ascontiguousarray(np.tile(np.asarray(f0.data), (1, 1, 4, 4))))
+    H, W = big.img_size
+    src = work / "big.ppm"
+    save_frame_data_to_file(big, str(src))
+    cfg = coolchic_config_from_args(intra_operating_points()["hop"], (H, W))
+    fcfg = FrameConfig(coolchic_cfg={"residue": cfg})
+    params = frame_encoder_init(torch.Generator().manual_seed(10), fcfg)
+    rng = np.random.default_rng(10)
+    params["residue"]["latents"] = [
+        torch.tensor(rng.normal(0, 1.5, tuple(x.shape)).astype(np.float32) / cfg.encoder_gain)
+        for x in params["residue"]["latents"]]
+    like = tree_map(lambda x: x[None].to(dev), params)
+    target = torch.as_tensor(np.asarray(big.data, np.float32), device=dev)
+    lmbda = torch.full((1,), 1e-3, device=dev)
+    level = torch.full((1,), 0.2, device=dev)
+    fns = {name: PhaseFns(fcfg, like, "gaussian", "softround", {"mse": 1.0}, (0.95, 0.95),
+                          (0.9, 0.999), 10, mesh=m)
+           for name, m in (("whole", None), ("2 shards", mesh))}
+    out: dict = {"frame": [H, W], "mesh": [str(d) for d in mesh.devices]}
+
+    # --- (a) one step, a 4-step window, ms per step, peak
+    noise = TorchNoise(torch.Generator(device=dev).manual_seed(5))(
+        "step", fcfg, 1, "gaussian", level, True)
+    leaves = tree_leaves(like)
+    step = {}
+    for name, f in fns.items():
+        with torch.no_grad():
+            lo = float(f.loss(leaves, noise, 0.3, target, lmbda).loss[0])
+        step[name] = (lo, f.grads(leaves, noise, 0.3, target, lmbda))
+    (l_w, g_w), (l_s, g_s) = step["whole"], step["2 shards"]
+    worst = max((float((a.double() - b.double()).norm() / b.double().norm()), path)
+                for (path, _), a, b in zip(tree_flatten_with_path(like), g_s, g_w)
+                if b is not None and float(b.abs().max()) != 0.0)
+    del step, g_w, g_s
+    print(f"[10a] one {H}x{W} hop step on the mesh ({mesh.devices[0]} x 2) against the whole "
+          f"step: loss {l_s:.8f} vs {l_w:.8f}; worst leaf gradient |diff|_2/|whole|_2 "
+          f"{worst[0]:.2e} ({worst[1]}), bar {STEP_GRAD_TOL:.0e}", flush=True)
+    check(abs(l_s - l_w) <= 1e-5 * abs(l_w), f"10a step loss {l_s} vs {l_w}")
+    check(worst[0] <= STEP_GRAD_TOL, f"10a step gradient {worst[1]}: {worst[0]:.2e}")
+
+    def window(f, n, seed=6, timed=False):
+        lv = tree_leaves(like)
+        st = init_opt_state(lv, f.groups, f.hp_weight, f.hp_latent)
+        draw = TorchNoise(torch.Generator(device=dev).manual_seed(seed))
+        ev = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        for s in range(n):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            lv, st = f.step(lv, st, draw("step", fcfg, 1, "gaussian", level, True), 0.3,
+                            torch.tensor(1e-2, device=dev), target, lmbda,
+                            refresh=(s + 1) % f.pf == 0)
+            e1.record()
+            ev.append((e0, e1))
+        torch.cuda.synchronize()
+        host = 1e3 * (time.time() - t0) / n
+        ms = [a.elapsed_time(b) for a, b in ev]
+        return lv, {"step_ms": statistics.median(ms[1:] if timed else ms), "host_ms": host,
+                    "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+    res4 = {name: window(f, 4)[0] for name, f in fns.items()}
+    ev4 = {name: float(fns[name].eval(lv, target, lmbda).loss[0]) for name, lv in res4.items()}
+    lat_err = float((res4["2 shards"][0] - res4["whole"][0]).abs().max())
+    print(f"[10a] 4-step window: eval loss sharded {ev4['2 shards']:.8f} vs whole "
+          f"{ev4['whole']:.8f} (bar 1e-3 relative); latents[0] max |diff| {lat_err:.2e} "
+          f"(bar 2e-4)", flush=True)
+    check(abs(ev4["2 shards"] - ev4["whole"]) <= 1e-3 * abs(ev4["whole"]), f"10a window {ev4}")
+    check(lat_err <= 2e-4, f"10a window latents {lat_err}")
+    del res4
+    timing = {name: window(f, 21, timed=True)[1] for name, f in fns.items()}
+    for name, t in timing.items():
+        print(f"[10a] {name}: {t['step_ms']:.2f} ms a step (CUDA events, median of 20), host "
+              f"{t['host_ms']:.2f} ms a step, peak {t['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    with torch.no_grad():
+        grids = quantize_latents(like["residue"], cfg, noise=None, quantizer_type="hardround",
+                                 soft_round_temperature=0.3)
+        ifce_ms = cuda_ms(lambda: ifce_context(like["residue"], cfg, grids))
+        rate_ms = cuda_ms(lambda: latent_rate(like["residue"], cfg, grids))
+    print(f"[10a] forward, whole on the first device: IFCE context {ifce_ms:.2f} ms of the "
+          f"rate's {rate_ms:.2f} ms (contexts, IFCE, ARM)", flush=True)
+    out["a"] = {"loss": [l_w, l_s], "grad_worst": worst, "window_loss": ev4,
+                "window_latent_err": lat_err, "timing": timing, "ifce_ms": ifce_ms,
+                "rate_ms": rate_ms}
+
+    # --- (b) the decode-side float path
+    with torch.no_grad():
+        whole = coolchic_forward(like["residue"], cfg, training=False).raw_out
+        split = coolchic_forward(like["residue"], cfg, training=False, mesh=mesh).raw_out
+        float_err = float((split - whole).abs().max())
+        dec_w = frame_encoder_forward(like, fcfg, training=False).decoded_image
+        dec_s = make_spatial_synthesis(fcfg, mesh)(params)
+        codes = (dec_s - dec_w).abs() * 255
+    code_max, code_share = float(codes.max()), float((codes > 0.5).float().mean())
+    del whole, split, dec_w, dec_s, codes
+    print(f"[10b] decode-side float path on the mesh against the whole eval forward: max "
+          f"|diff| {float_err:.2e} (bar 2e-5); make_spatial_synthesis's 8-bit image: max "
+          f"{code_max:.0f} code, {code_share:.2e} of the samples differ", flush=True)
+    check(float_err <= 2e-5, f"10b float path {float_err}")
+    check(code_max <= 1.0, f"10b decoded image {code_max} codes")
+    out["b"] = {"float_err": float_err, "code_max": code_max, "code_share": code_share}
+    del like, fns, target, leaves, noise
+    torch.cuda.empty_cache()
+
+    # --- (c) the encode, whole and on the 2-shard mesh
+    # cuDNN's default algorithms are not deterministic on the card, and a
+    # fresh trajectory amplifies that: two whole 60-step encodes of this
+    # frame differed by 0.23 dB and 2.5 % of the bytes (PERF.md). In
+    # deterministic mode each run repeats bit for bit, so what differs
+    # between the two encodes below is the split alone.
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    enc = {}
+    for name, m in (("whole", None), ("2 shards", mesh)):
+        cs = CodingStructure(n_frames=1, intra_pos=[0])
+        wd = work / ("enc_whole" if m is None else "enc_sharded")
+        wd.mkdir()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        r = encode_one_frame(cs.get_frame_from_coding_order(0), cs, str(src), str(wd),
+                             main_only_preset(), {"residue": intra_operating_points()["hop"]},
+                             verbose=False, rdoq=False, profile="tpu", device=dev, mesh=m)
+        torch.cuda.synchronize()
+        enc[name] = {"psnr_db": r["logs"].psnr_db, "n_bytes": r["n_bytes"],
+                     "wall_s": time.time() - t0, "stages_s": r["monitor"].phase_time_sec,
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                     "payload": r["payload"]}
+        print(f"[10c] encode_one_frame {name} (deterministic cuDNN): "
+              f"{enc[name]['psnr_db']:.3f} dB, "
+              f"{enc[name]['n_bytes']} bytes, {enc[name]['wall_s']:.1f} s, peak "
+              f"{enc[name]['peak_bytes'] / 2**30:.2f} GiB; stages " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in enc[name]["stages_s"].items()), flush=True)
+    torch.backends.cudnn.deterministic = det[0]
+    torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    e_w, e_s = enc["whole"], enc["2 shards"]
+    check(abs(e_w["psnr_db"] - e_s["psnr_db"]) < 0.1, f"10c psnr {e_w['psnr_db']} vs "
+          f"{e_s['psnr_db']}")
+    check(abs(e_w["n_bytes"] - e_s["n_bytes"]) <= 0.05 * e_w["n_bytes"],
+          f"10c bytes {e_w['n_bytes']} vs {e_s['n_bytes']}")
+    path = work / "sharded.cool"
+    path.write_bytes(e_s.pop("payload"))
+    e_w.pop("payload")
+    routes: list = []
+    wfd.KERNEL.launches = 0
+    t0 = time.time()
+    dec = decode_video(str(path), device=dev, routes=routes)["0"]
+    torch.cuda.synchronize()
+    dec_s_time, dec_launches = time.time() - t0, wfd.KERNEL.launches
+    p_dec = dist_to_db(float(np.mean(np.square(np.asarray(dec.data, np.float64)
+                                               - np.asarray(big.data, np.float64)))))
+    k_levels = check_file_grids(path, dev)
+    lv_routes = level_routes(path, dev)
+    print(f"[10c] decode_video of the sharded file: {dec_s_time:.2f} s, wavefront_decode "
+          f"launches {dec_launches}, routes {[r['path'] for r in routes]}; decoder psnr "
+          f"{p_dec:.3f} dB vs encoder {e_s['psnr_db']:.3f}; every grid kernel == host C++ "
+          f"(kernel levels {k_levels})", flush=True)
+    for r in lv_routes:
+        print(f"[10c]   level {r['level']} {r['shape']}: {r['streams']} streams, {r['route']}"
+              + (f", {r['kernel_ms']:.3f} ms over {r['wavefronts']} wavefronts (step "
+                 f"{r['step']})" if "kernel_ms" in r else "")
+              + (f" ({r['why']})" if "why" in r else ""), flush=True)
+    check(dec_launches > 0, "10c: decode_video launched no wavefront_decode kernel")
+    check(abs(p_dec - e_s["psnr_db"]) < 0.3, f"10c decoder psnr {p_dec} vs {e_s['psnr_db']}")
+    cli_argv = ["-i", str(src), "-o", str(work / "cli.cool"), "--workdir",
+                str(work / "cli"), "--recipe", "debug", "--no_rdoq", "--device", "cuda"]
+    rc_refuse = cc_encode.main([*cli_argv, "--spatial_shard", "2"])
+    check(rc_refuse != 0 and not (work / "cli.cool").exists(),
+          f"--spatial_shard 2 on {torch.cuda.device_count()} card(s) exited {rc_refuse}")
+    auto = resolve_spatial_shard("auto", dev, torch.cuda.device_count(), H * W)
+    check(auto == 0, f"--spatial_shard auto on one card resolved to {auto}")
+    print(f"[10c] the CLI with --spatial_shard 2 on {torch.cuda.device_count()} card exits "
+          f"{rc_refuse} (refused); auto resolves to {auto}", flush=True)
+    out["c"] = {"encode": enc, "decoder_psnr": p_dec, "decode_s": dec_s_time,
+                "decode_launches": dec_launches, "levels": lv_routes,
+                "cli_refusal_rc": rc_refuse, "auto": auto}
+
+    out["d"] = data_mesh_phase(dev, frames[:4], work)
+
+    # --- (e) two processes, both ranks on the card, gloo
+    t0 = time.time()
+    outs = launch_dcn_dryrun(n_devices=4, num_processes=2, device="cuda", backend="gloo",
+                             timeout=300)
+    dcn_s = time.time() - t0
+    ok = [o.strip().splitlines()[-1] for o in outs]
+    print(f"[10e] launch_dcn_dryrun (4 mesh devices, 2 processes, gloo, cuda): {dcn_s:.1f} s; "
+          + " | ".join(ok), flush=True)
+    out["e"] = {"seconds": dcn_s, "workers": ok}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1867,6 +2540,7 @@ def main() -> int:
         batch_enc = batch_encode_phase(dev, frames, wd / "p9a", enc["step_ms"])
         wave = wave_phase(dev, frames[0], wd / "p8", wd / "p9b",
                           video["steps"]["B"]["step_ms"])
+        multi = multi_device_phase(dev, frames, wd / "p10")
 
     kernels = [{
         "name": "wavefront_decode",
@@ -1881,7 +2555,11 @@ def main() -> int:
                                 for ft, r in video["frames"].items()},
                              "decode_video I+P+B": video["decode_launches"],
                              "decode_images of 8 batched encodes": batch_enc["decode_launches"],
-                             "decode_video I0 P4 B2 B1 B3 (wave)": wave["decode_launches"]},
+                             "decode_video I0 P4 B2 B1 B3 (wave)": wave["decode_launches"],
+                             "decode_video of the 2-shard 2048x3072 encode (10c)":
+                                 multi["c"]["decode_launches"],
+                             "decode_images of 4 data-mesh encodes (10d)":
+                                 multi["d"]["decode_launches"]},
         "max_abs_err": max(max_abs_err, *(g["max_abs_err"]
                                           for g in video["motion_grids"].values())),
         "ms": kern1_ms,
@@ -1907,6 +2585,7 @@ def main() -> int:
     print(json.dumps({"video_512x768": video, "card": card}), flush=True)
     print(json.dumps({"batch_encode_512x768_hop": batch_enc, "card": card}), flush=True)
     print(json.dumps({"wave_512x768": wave, "card": card}), flush=True)
+    print(json.dumps({"multi_device": multi, "card": card}), flush=True)
     tmp.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())

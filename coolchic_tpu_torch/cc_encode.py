@@ -23,7 +23,11 @@ Every encode is decoded back by the port's own decoder (the whole file up
 to this coding index); a PSNR more than 0.3 dB off the encoder's, or a
 real rate more than 20 % off its estimate, exits non-zero.
 
-Not ported yet: --spatial_shard.
+`--spatial_shard` (default auto) splits one large frame's training along
+its height over N devices (parallel/spatial.py): auto is 0 unless the
+device is cuda, more than one card is visible and the frame has at least
+2 * 1024 * 1024 pixels, and then every card; on cuda an N above the card
+count is refused; on the CPU, N shards of the CPU (how the tests run it).
 """
 
 from __future__ import annotations
@@ -103,6 +107,11 @@ def build_parser() -> ConfigArgParser:
         p.add(f"--{key}", type=type(default), default=default)
     p.add("--warp_filter_size", type=int, default=8,
           help="taps of the warping interpolation filter")
+    p.add("--spatial_shard", default="auto",
+          help="shard the frame's training along image height over N devices (for "
+               "2K/4K frames). 0 disables; 'auto' enables over every card when the "
+               "device is cuda, more than one card is visible and the frame is >= 2 "
+               "Mpix. On --device cpu, N shards of the CPU")
     return p
 
 
@@ -110,7 +119,11 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
 
+    import torch
+
     from coolchic_tpu_torch.core.device import resolve_device
+    from coolchic_tpu_torch.io.io import load_frame_data_from_file
+    from coolchic_tpu_torch.parallel.spatial import resolve_spatial_shard
     from coolchic_tpu_torch.train.presets import AVAILABLE_PRESETS
     from coolchic_tpu_torch.train.video import encode_one_frame
     from coolchic_tpu_torch.utils.codingstructure import CodingStructure
@@ -169,10 +182,24 @@ def main(argv: list[str] | None = None) -> int:
     cfg_args = {name: {k: str(getattr(args, f"{k}_{name}")) for k in _DEC_KEYS}
                 for name in (("residue", "motion") if inter else ("residue",))}
 
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    n_pixels = 0
+    if str(args.spatial_shard) == "auto" and n_cards > 1:
+        n_pixels = load_frame_data_from_file(
+            args.input, frame.display_order + frame.frame_offset).n_pixels
+    try:
+        spatial_shard = resolve_spatial_shard(args.spatial_shard, device, n_cards, n_pixels)
+    except ValueError as e:
+        print(f"cc_encode: {e}", file=sys.stderr)
+        return 2
+    if spatial_shard > 1 and args.verbose > 0:
+        print(f"spatial sharding: H over {spatial_shard} devices", flush=True)
+
     res = encode_one_frame(frame, cs, args.input, workdir, preset, cfg_args,
                            warp_filter_size=args.warp_filter_size, seed=args.seed,
                            verbose=args.verbose > 0, tune=args.tune,
-                           rdoq=not args.no_rdoq, profile=args.profile, device=device)
+                           rdoq=not args.no_rdoq, profile=args.profile, device=device,
+                           spatial_shard=spatial_shard)
     _write_archi(os.path.join(workdir, "archi.txt"), res, verbose=args.print_detailed_archi)
 
     if args.nobitstream:

@@ -10,20 +10,45 @@ each image owns its slot: the ops are batched matmuls, grouped convs and
 elementwise ops, so one forward serves the whole batch. Noise is an input
 (one [G, h, w] tensor per latent grid, in grid order), drawn by the caller.
 
+With a `mesh` (parallel/batch.py:Mesh; every device of it is one "space"
+shard) the forward splits ONE large image's rows over the devices, the
+port of the JAX package's GSPMD spatial sharding
+(coolchic_tpu/parallel/spatial.py, models/upsampling.py:_pin_spatial,
+respread_spatial). The placement is explicit:
+  - the parameters, the latents and their optimizer state stay whole on
+    the mesh's first device (the JAX package shards the latents and their
+    state; the numbers are the same either way, and at 2048x3072 the
+    latents are ~34 MB beside gigabytes of activations);
+  - quantization, the IFCE context and the upsampling pyramid run whole
+    there too (the JAX package pins the pyramid replicated);
+  - shard s computes the ARM rate of its rows [a_s, b_s) of every grid
+    that split_rows() splits, from a slab with the 4 rows above that the
+    causal 9x9 context reads, and the synthesis of its rows of the dense
+    stack from a slab with synthesis_halo() rows on each interior side
+    (replicate padding only at the image's top and bottom rows); a grid
+    that does not split is rated whole on the first device, once;
+  - the rates and the synthesis rows are concatenated back on the first
+    device, where the final resize and everything after it run.
+`.to()` is differentiable, so autograd carries the gradients back to the
+whole leaves. A mesh may name one device several times (the tests' and a
+one-card run's meshes): the copies are then no-ops. A slab's convs sum in
+another order than the whole image's, so the sharded forward equals the
+unsharded one to f32 rounding, not bit for bit.
+
 Reference parity: CoolChicEncoder.forward and helpers
 (coolchic/component/core/coolchic.py:261-758) and
-coolchic_tpu/models/coolchic.py. The spatial-mesh resharding of the JAX
-package is not ported.
+coolchic_tpu/models/coolchic.py.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from coolchic_tpu_torch.core.arch import CoolChicConfig
+from coolchic_tpu_torch.core.constants import MAX_ARM_MASK_SIZE
 from coolchic_tpu_torch.core.laplace import rate_bits
 from coolchic_tpu_torch.core.noise import common_randomness_grids
 from coolchic_tpu_torch.core.quantizer import clip, quantize
@@ -34,7 +59,11 @@ from coolchic_tpu_torch.models.arm import (
     ifce_arm_index,
     ifce_init,
 )
-from coolchic_tpu_torch.models.synthesis import synthesis_apply, synthesis_init
+from coolchic_tpu_torch.models.synthesis import (
+    synthesis_apply,
+    synthesis_halo,
+    synthesis_init,
+)
 from coolchic_tpu_torch.models.upsampling import (
     fixed_upsampling,
     upsampling_apply,
@@ -42,6 +71,10 @@ from coolchic_tpu_torch.models.upsampling import (
 )
 from coolchic_tpu_torch.ops.context import spatial_context
 from coolchic_tpu_torch.ops.resize import interpolate, interpolate_x2
+from coolchic_tpu_torch.train.params import tree_map
+
+# Rows above a latent that its causal 9x9 ARM context reads.
+CTX_ROWS = (MAX_ARM_MASK_SIZE - 1) // 2
 
 
 class CoolChicOutput(NamedTuple):
@@ -138,17 +171,91 @@ def ifce_context(params: dict, cfg: CoolChicConfig, grids: list[torch.Tensor]
     return torch.cat(chunks, dim=1)
 
 
-def latent_rate(params: dict, cfg: CoolChicConfig, grids: list[torch.Tensor]
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-latent (rate_bits, mu, scale), each [G, n_latents], flattened over
-    all grids in order."""
-    G = grids[0].shape[0]
-    flat_latent = torch.cat([g.reshape(G, -1) for g in grids], dim=1)
-    ctx = torch.cat([spatial_context(g, cfg.spatial_context_arm) for g in grids], dim=1)
-    if cfg.flag_ifce:
-        ctx = torch.cat([ctx, ifce_context(params, cfg, grids)], dim=2)
-    mu, scale = arm_reparameterize(arm_apply(params["arm"], ctx))
-    return rate_bits(flat_latent, mu, scale), mu, scale
+def split_rows(h: int, n: int) -> bool:
+    """Whether a latent grid of h rows splits over n space shards: the JAX
+    package's placement rule (coolchic_tpu/parallel/spatial.py:46-47), h
+    divisible by n with at least 4 rows a shard (thinner slabs would be
+    all halo)."""
+    return n > 1 and h % n == 0 and h // n >= 4
+
+
+def _row_bounds(h: int, n: int, s: int) -> tuple[int, int]:
+    return s * h // n, (s + 1) * h // n
+
+
+def _on_devices(tree, devices: Sequence[torch.device]) -> dict:
+    """{device: tree moved there} for each distinct device (differentiable
+    copies; the tree itself on its own device)."""
+    return {d: tree_map(lambda x: x.to(d), tree) for d in dict.fromkeys(devices)}
+
+
+def _arm_rate(arm_params: dict, lat: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    mu, scale = arm_reparameterize(arm_apply(arm_params, ctx))
+    return rate_bits(lat, mu, scale)
+
+
+def latent_rate(params: dict, cfg: CoolChicConfig, grids: list[torch.Tensor],
+                devices: Optional[Sequence[torch.device]] = None) -> torch.Tensor:
+    """Per-latent rate_bits [G, n_latents], flattened over all grids in order,
+    on the grids' device. With `devices` (a space mesh's) every split_rows
+    grid is rated in row slabs, slab s on devices[s]; the other grids are
+    rated whole, together, on the grids' device."""
+    G, d0 = grids[0].shape[0], grids[0].device
+    devices = [d0] if devices is None else list(devices)
+    n = len(devices)
+    ifce = ifce_context(params, cfg, grids) if cfg.flag_ifce else None
+    arm_on = {d0: params["arm"]} if n == 1 else _on_devices(params["arm"], devices)
+    pieces, whole, off = [], [], 0
+    for g in grids:
+        h, w = g.shape[-2:]
+        ifce_g = None if ifce is None else ifce[:, off: off + h * w]
+        off += h * w
+        if not split_rows(h, n):
+            ctx = spatial_context(g, cfg.spatial_context_arm)
+            if ifce_g is not None:
+                ctx = torch.cat([ctx, ifce_g], dim=2)
+            whole.append((len(pieces), g.reshape(G, -1), ctx))
+            pieces.append(None)
+            continue
+        parts = []
+        for s, d in enumerate(devices):
+            a, b = _row_bounds(h, n, s)
+            a0 = max(a - CTX_ROWS, 0)
+            slab = g[:, a0:b].to(d)
+            ctx = spatial_context(slab, cfg.spatial_context_arm)[:, (a - a0) * w:]
+            if ifce_g is not None:
+                ctx = torch.cat([ctx, ifce_g[:, a * w: b * w].to(d)], dim=2)
+            parts.append(_arm_rate(arm_on[d], slab[:, a - a0:].reshape(G, -1), ctx).to(d0))
+        pieces.append(torch.cat(parts, dim=1))
+    if whole:
+        rate = _arm_rate(arm_on[d0], torch.cat([x[1] for x in whole], dim=1),
+                         torch.cat([x[2] for x in whole], dim=1))
+        start = 0
+        for idx, lat, _ in whole:
+            pieces[idx] = rate[:, start: start + lat.shape[1]]
+            start += lat.shape[1]
+    return torch.cat(pieces, dim=1)
+
+
+def synthesis_sharded(params: dict, specs, x: torch.Tensor,
+                      devices: Optional[Sequence[torch.device]] = None) -> torch.Tensor:
+    """synthesis_apply of [G, C, H, W], with its rows split over `devices`
+    (a space mesh's) when H divides evenly (the target's rule,
+    parallel/spatial.py:shard_target), each slab with synthesis_halo rows on
+    its interior sides; the rows come back concatenated on x's device."""
+    h, n, d0 = x.shape[-2], 1 if devices is None else len(devices), x.device
+    if n < 2 or h % n:
+        return synthesis_apply(params, specs, x)
+    halo = synthesis_halo(params)
+    on = _on_devices(params, devices)
+    rows = []
+    for s, d in enumerate(devices):
+        a, b = _row_bounds(h, n, s)
+        a0, b0 = max(a - halo, 0), min(b + halo, h)
+        y = synthesis_apply(on[d], specs, x[:, :, a0:b0].to(d), edges=(a0 == 0, b0 == h))
+        start = a0 + (halo if a0 > 0 else 0)
+        rows.append(y[:, :, a - start: b - start].to(d0))
+    return torch.cat(rows, dim=2)
 
 
 @lru_cache(maxsize=4)
@@ -192,18 +299,22 @@ def coolchic_forward(params: dict, cfg: CoolChicConfig, *,
                      training: bool = True,
                      ac_max_val: int = -1,
                      cr: Optional[list[torch.Tensor]] = None,
-                     no_cr: bool = False, only_cr: bool = False) -> CoolChicOutput:
+                     no_cr: bool = False, only_cr: bool = False,
+                     mesh=None) -> CoolChicOutput:
     """Batched forward (every params leaf [G, ...]). training=False is the
     decoder's view: hardround latents, no noise. `cr`: the common-randomness
-    grids (make_cr_grids) when the config has them (--tune wasserstein)."""
+    grids (make_cr_grids) when the config has them (--tune wasserstein).
+    `mesh`: split the image's rows over its devices (the module's
+    docstring); its first device must hold the params."""
     if not training:
         quantizer_type, noise = "hardround", None
+    devices = None if mesh is None else list(mesh.devices)
 
     grids = quantize_latents(params, cfg, noise=noise, quantizer_type=quantizer_type,
                              soft_round_temperature=soft_round_temperature,
                              ac_max_val=ac_max_val)
 
-    rate, _, _ = latent_rate(params, cfg, grids)
+    rate = latent_rate(params, cfg, grids, devices)
 
     # Hyperlatents are entropy-coded but do not feed the synthesis.
     syn_grids = [g for g, hyper in zip(grids, cfg.flag_is_hyperlatent) if not hyper]
@@ -211,6 +322,7 @@ def coolchic_forward(params: dict, cfg: CoolChicConfig, *,
     dense = upsampling_apply(ups["tconv_half"], ups["conv_half"], syn_grids,
                              cfg.ups_k_size, cfg.ups_preconcat_k_size)
     syn_in = synthesis_input(cfg, dense, cr, no_cr=no_cr, only_cr=only_cr)
-    syn_out = synthesis_apply(params["synthesis"], cfg.parsed_synthesis, syn_in)
+    syn_out = synthesis_sharded(params["synthesis"], cfg.parsed_synthesis, syn_in,
+                                devices)
     raw_out = interpolate(syn_out, cfg.img_size, cfg.final_upsampling_type)
     return CoolChicOutput(raw_out=raw_out, rate=rate, latents=grids)

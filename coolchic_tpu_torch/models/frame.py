@@ -100,20 +100,23 @@ def frame_encoder_forward(params: dict, fcfg: FrameConfig, *,
                           soft_round_temperature=0.3,
                           training: bool = True,
                           ac_max_val: int = -1,
-                          cr: Optional[dict] = None) -> FrameEncoderOutput:
+                          cr: Optional[dict] = None, mesh=None) -> FrameEncoderOutput:
     """Batched forward. `reference_frames`: for P/B, one [G, 3, H, W]
     tensor per reference (dense, 444 for yuv420), unshifted; `noise`: {cc
     name: [one tensor per grid]} or None; `cr`: frame_cr_grids' dict, or
     None. Returns the decoded image(s) [G, C, H, W] (a dict of planes for
     yuv420), clipped to [0, 1] (not for frame_data_type "flow"), and
-    rounded to the bitdepth when not training."""
+    rounded to the bitdepth when not training. `mesh`: each cool-chic
+    splits the frame's rows over its devices (models/coolchic.py); the
+    warp, the blend and the rounding run whole on its first device, which
+    holds the params, the references and the output."""
     cc_out = {}
     for name, cfg in fcfg.cc_cfgs.items():
         cc_out[name] = coolchic_forward(
             params[name], cfg, noise=None if noise is None else noise.get(name),
             quantizer_type=quantizer_type, soft_round_temperature=soft_round_temperature,
             training=training, ac_max_val=ac_max_val,
-            cr=None if cr is None else cr.get(name))
+            cr=None if cr is None else cr.get(name), mesh=mesh)
 
     rate = {name: out.rate for name, out in cc_out.items()}
     additional = None

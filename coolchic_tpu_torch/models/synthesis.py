@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from coolchic_tpu_torch.core.arch import CoolChicConfig
@@ -62,34 +63,63 @@ def synthesis_batched(mods: list[Synthesis], x: torch.Tensor) -> torch.Tensor:
     return synthesis_apply(params, m0.specs, x)
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+          edges: tuple[bool, bool] = (True, True)) -> torch.Tensor:
     """Per-image conv: x [G, C_in, H, W], w [G, C_out, C_in, k, k], b
-    [G, C_out] -> [G, C_out, H, W], as one grouped conv (group g = image
-    g), so the batch costs one launch per layer."""
+    [G, C_out] -> [G, C_out, H', W], as one grouped conv (group g = image
+    g), so the batch costs one launch per layer. `edges` (top, bottom):
+    whether x's first / last row is the image's; only an image edge is
+    replicate-padded, and an interior side loses (k - 1) // 2 rows of halo
+    (H' = H at two edges)."""
     G, c_in = x.shape[:2]
     k = w.shape[-1]
-    y = conv2d_replicate(x.reshape(1, G * c_in, *x.shape[-2:]),
-                         w.reshape(-1, *w.shape[2:]), b.reshape(-1),
-                         padding=(k - 1) // 2, groups=G)
+    p = (k - 1) // 2
+    x = x.reshape(1, G * c_in, *x.shape[-2:])
+    if edges == (True, True):
+        y = conv2d_replicate(x, w.reshape(-1, *w.shape[2:]), b.reshape(-1), padding=p,
+                             groups=G)
+    else:
+        if p > 0:
+            x = F.pad(x, (p, p, p * edges[0], p * edges[1]), mode="replicate")
+        y = F.conv2d(x, w.reshape(-1, *w.shape[2:]), b.reshape(-1), groups=G)
     return y.reshape(G, -1, *y.shape[-2:])
 
 
-def synthesis_apply(params: dict, specs, x: torch.Tensor) -> torch.Tensor:
+def synthesis_halo(params: dict) -> int:
+    """Rows of context the synthesis reads on each side of a row: the sum
+    of (k - 1) // 2 over its convs."""
+    return sum((lay["weight"].shape[-1] - 1) // 2 for lay in params["layers"])
+
+
+def _rows(x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
+    return x[..., top: x.shape[-2] - bottom, :]
+
+
+def synthesis_apply(params: dict, specs, x: torch.Tensor,
+                    edges: tuple[bool, bool] = (True, True)) -> torch.Tensor:
     """[G, C_in, H, W] -> [G, C_out, H, W] with per-image params (every leaf
     [G, ...]) in the JAX package's layout; `specs` is
-    CoolChicConfig.parsed_synthesis. Differentiable in the params and x."""
+    CoolChicConfig.parsed_synthesis. Differentiable in the params and x.
+
+    `edges` (top, bottom) for a slab of rows of a larger image: an interior
+    side carries synthesis_halo(params) rows of halo, which the convs use
+    up (cropped after each conv); the output is the slab less its halos."""
     y = x
+    cut = [0, 0]   # rows of x's halo used up so far, top and bottom
     for lay, (_, _, mode, non_linearity) in zip(params["layers"], specs):
-        z = _conv(y, lay["weight"], lay["bias"])
+        z = _conv(y, lay["weight"], lay["bias"], edges)
+        p = (lay["weight"].shape[-1] - 1) // 2
+        lost = (p * (not edges[0]), p * (not edges[1]))
         if mode == "residual":
-            z = z + y
+            z = z + _rows(y, *lost)
+        cut = [cut[0] + lost[0], cut[1] + lost[1]]
         if non_linearity == "relu":
             z = torch.relu(z)
         y = z
 
     if "stabiliser" in params:
         n_in_stab = params["stabiliser"]["weight"].shape[2]
-        y = y + _conv(x[:, :n_in_stab], params["stabiliser"]["weight"],
+        y = y + _conv(_rows(x[:, :n_in_stab], *cut), params["stabiliser"]["weight"],
                       params["stabiliser"]["bias"])
 
     ot = params["output_transform"]

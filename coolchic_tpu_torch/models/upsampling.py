@@ -80,15 +80,16 @@ def _conv_mm_basis(n_in: int, k: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=64)
-def _basis_on(kind: str, n_in: int, k: int, device: torch.device) -> torch.Tensor:
+def _basis_on(kind: str, n_in: int, k: int, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     fn = _tconv_mm_basis if kind == "tconv" else _conv_mm_basis
-    return torch.as_tensor(fn(n_in, k), device=device)
+    return torch.as_tensor(fn(n_in, k), device=device).to(dtype)
 
 
 def _sep_matrices(half: torch.Tensor, kind: str, sizes: tuple[int, int], k: int):
     """Per-image [G, o, i] matrices of the H and W 1-D chains."""
-    bh = _basis_on(kind, sizes[0], k, half.device)
-    bw = _basis_on(kind, sizes[1], k, half.device)
+    bh = _basis_on(kind, sizes[0], k, half.device, half.dtype)
+    bw = _basis_on(kind, sizes[1], k, half.device, half.dtype)
     return (torch.einsum("gt,tij->gij", half, bh),
             torch.einsum("gt,tij->gij", half, bw))
 

@@ -95,8 +95,8 @@ def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str) -> torch.Tens
         ix = _on(_nearest_index_np, w_in, w_out, x.device)
         return x[..., iy, :][..., :, ix]
 
-    wy = _on(_resize_matrix_np, h_in, h_out, x.device, mode)
-    wx = _on(_resize_matrix_np, w_in, w_out, x.device, mode)
+    wy = _on(_resize_matrix_np, h_in, h_out, x.device, mode).to(x.dtype)
+    wx = _on(_resize_matrix_np, w_in, w_out, x.device, mode).to(x.dtype)
     # [..., H_in, W_in] -> [..., H_out, W_in] -> [..., H_out, W_out]
     y = torch.einsum("oh,...hw->...ow", wy, x)
     return torch.einsum("ow,...hw->...ho", wx, y)

@@ -14,8 +14,9 @@ encode_images_batched encodes N same-sized I images this way: a
 single-stage warm-up whose candidates train batched over all images, each
 image keeping its best candidate, the main phases batched, then NN
 quantization, RDOQ and the bitstream write per image. A dataset sweep
-(images x rate points) runs as mixed-λ batches. The mesh / shard_map
-branch of the JAX package is not ported.
+(images x rate points) runs as mixed-λ batches. With a data mesh
+(parallel/batch.py) each data device trains its contiguous chunk of the
+slots, the port of the JAX package's shard_map over "data".
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from coolchic_tpu_torch.models.frame import FrameConfig, frame_encoder_init
 from coolchic_tpu_torch.models.params import tree_from_numpy, tree_to_numpy
 from coolchic_tpu_torch.nnquant.quantize import quantize_coolchic
 from coolchic_tpu_torch.nnquant.rdoq import rdoq_coolchic
+from coolchic_tpu_torch.parallel.batch import chunk_bounds, window_chunks
 from coolchic_tpu_torch.train.encode import _target_from_frame, img_min_max
 from coolchic_tpu_torch.train.presets import Preset, TrainerPhase
 from coolchic_tpu_torch.train.train import (
@@ -64,7 +66,7 @@ def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerP
                    monitor: EncoderMonitor, verbose: bool, *, noise_source,
                    seed_soap: bool = True, cr: Optional[dict] = None,
                    refs_b: Optional[list] = None, lmbda_b=None,
-                   noise_b=None) -> tuple[dict, torch.Tensor]:
+                   noise_b=None, mesh=None) -> tuple[dict, torch.Tensor]:
     """One training phase over the batch; returns (best params per image,
     best loss [G]).
 
@@ -77,42 +79,77 @@ def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerP
     seeding gradient, as the JAX warm-up does. `cr`: the common-randomness
     grids every slot shares (models/frame.py:frame_cr_grids), or None.
     `refs_b`: a P/B frame's decoded references, one [G, 3, H, W] tensor
-    each, riding the batch axis with the targets."""
+    each, riding the batch axis with the targets.
+
+    `mesh` (parallel/batch.py:Mesh): each data slice takes a contiguous
+    chunk of the slots (leaves, SOAP states, targets, λ, references and
+    its slots' own SlotNoise generators, so a slot's draws do not depend
+    on the split) on its device; the chunks step device after device with
+    no host sync between them, and the host reads every chunk's losses
+    once a window. G must divide over the data slices. The best params
+    and losses come back on the mesh's first device."""
     like = params_b
     leaves = [x.detach() for x in tree_leaves(params_b)]
-    dev = leaves[0].device
     n = leaves[0].shape[0]
     if lmbda_b is None:
-        lmbda_b = torch.full((n,), phase.lmbda, dtype=torch.float32, device=dev)
+        lmbda_np = np.full((n,), phase.lmbda, np.float32)
     else:
-        lmbda_b = torch.as_tensor(np.asarray(lmbda_b, np.float32).reshape(n), device=dev)
+        lmbda_np = np.asarray(lmbda_b, np.float32).reshape(n)
     if noise_b is None:
         noise_b = np.tile(np.asarray(phase.noise_parameter, np.float32), (n, 1))
     else:
         noise_b = np.asarray(noise_b, np.float32).reshape(n, 2)
 
-    fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
-                   phase.dist_weight, tuple(phase.betas_model), tuple(phase.betas_latent),
-                   phase.precondition_frequency_model, cr=cr)
-    opt = init_opt_state(leaves, fns.groups, fns.hp_weight, fns.hp_latent)
+    if mesh is None:
+        devs, bounds, sources = [leaves[0].device], [(0, n)], [noise_source]
+    else:
+        devs, bounds = mesh.data_devices(), chunk_bounds(n, mesh.data)
+        if isinstance(noise_source, SlotNoise):
+            sources = [SlotNoise(noise_source.generators[a:b]) for a, b in bounds]
+        elif len(bounds) == 1:
+            sources = [noise_source]
+        else:
+            raise ValueError("a data mesh needs one noise stream per slot (train.SlotNoise)")
 
-    def draw(kind, noise_now: np.ndarray):
-        # one host-to-card copy of the [G] noise levels per window, not per step
-        level = torch.as_tensor(noise_now, device=dev)
-        return lambda: noise_source(kind, fcfg, n, phase.quantizer_noise_type, level,
-                                    fns.need_noise)
+    chunks = []
+    for (a, b), d, src in zip(bounds, devs, sources):
+        cr_d = None if cr is None else {k: None if v is None else [g.to(d) for g in v]
+                                        for k, v in cr.items()}
+        fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
+                       phase.dist_weight, tuple(phase.betas_model),
+                       tuple(phase.betas_latent), phase.precondition_frequency_model,
+                       cr=cr_d)
+        lv = [x[a:b].to(d) for x in leaves]
+        chunks.append({
+            "a": a, "b": b, "dev": d, "fns": fns, "src": src, "leaves": lv,
+            "opt": init_opt_state(lv, fns.groups, fns.hp_weight, fns.hp_latent),
+            "target": tree_map(lambda x: x[a:b].to(d), targets_b),
+            "lmbda": torch.as_tensor(lmbda_np[a:b], device=d),
+            "refs": None if refs_b is None else [r[a:b].to(d) for r in refs_b]})
+
+    def draw(c, kind, noise_now: np.ndarray):
+        # one host-to-card copy of the chunk's noise levels per window
+        level = torch.as_tensor(noise_now[c["a"]:c["b"]], device=c["dev"])
+        return lambda: c["src"](kind, fcfg, c["b"] - c["a"], phase.quantizer_noise_type, level,
+                           c["fns"].need_noise)
+
+    def evals():
+        # every chunk's eval launched before any is read
+        return [c["fns"].eval(c["leaves"], c["target"], c["lmbda"], c["refs"]).loss
+                for c in chunks]
 
     if seed_soap:
         # Reference SOAP first-step parity: each slot's WEIGHT-leaf
         # eigenbases seed from its own first gradient (one extra gradient;
         # only the NN-weight gradients reach the host).
         temp0 = linear_schedule(phase.softround_temperature, 0, phase.max_itr)
-        grads = fns.grads(leaves, draw("seed", noise_b[:, 0])(), temp0, targets_b,
-                          lmbda_b, refs_b)
-        opt = seed_opt_state(opt, grads, fns.groups, fns.hp_weight)
+        for c in chunks:
+            grads = c["fns"].grads(c["leaves"], draw(c, "seed", noise_b[:, 0])(), temp0,
+                                   c["target"], c["lmbda"], c["refs"])
+            c["opt"] = seed_opt_state(c["opt"], grads, c["fns"].groups, c["fns"].hp_weight)
 
-    best_loss = fns.eval(leaves, targets_b, lmbda_b, refs_b).loss
-    best = [x.clone() for x in leaves]
+    for c, loss in zip(chunks, evals()):
+        c["best_loss"], c["best"] = loss, [x.clone() for x in c["leaves"]]
 
     n_windows = math.ceil(phase.max_itr / phase.freq_valid)
     t_max = phase.max_itr / phase.freq_valid
@@ -123,39 +160,54 @@ def _batched_phase(params_b: dict, targets_b, fcfg: FrameConfig, phase: TrainerP
     for w_idx in range(n_windows):
         if phase.schedule_lr and (since_record > patience_windows).any():
             reload = since_record > patience_windows
-            leaves = _select(torch.as_tensor(reload, device=dev), best, leaves)
+            for c in chunks:
+                c["leaves"] = _select(torch.as_tensor(reload[c["a"]:c["b"]], device=c["dev"]),
+                                      c["best"], c["leaves"])
             since_record[reload] = 0
 
         lr = cosine_lr(phase.lr, w_idx, t_max) if phase.schedule_lr else phase.lr
-        lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
         temp = linear_schedule(phase.softround_temperature, cnt, phase.max_itr)
         # per-slot linear schedule (same math as linear_schedule, in f32)
         noise = noise_b[:, 0] + cnt * (noise_b[:, 1] - noise_b[:, 0]) / phase.max_itr
         n_steps = min(phase.freq_valid, phase.max_itr - cnt)
 
-        leaves, opt = fns.window(leaves, opt, draw("step", noise), n_steps, temp, lr_t,
-                                 targets_b, lmbda_b, refs_b)
+        done = window_chunks(
+            [c["fns"] for c in chunks], [(c["leaves"], c["opt"]) for c in chunks],
+            [draw(c, "step", noise) for c in chunks], n_steps, temp,
+            [torch.tensor(lr, dtype=torch.float32, device=c["dev"]) for c in chunks],
+            [c["target"] for c in chunks], [c["lmbda"] for c in chunks],
+            [c["refs"] for c in chunks])
+        for c, (lv, opt) in zip(chunks, done):
+            c["leaves"], c["opt"] = lv, opt
         cnt += n_steps
         monitor.iterations_counter += n_steps * n
 
-        lo = fns.eval(leaves, targets_b, lmbda_b, refs_b)
-        improved = lo.loss < best_loss
-        best = _select(improved, leaves, best)
-        best_loss = torch.where(improved, lo.loss, best_loss)
-        imp = improved.cpu().numpy()   # the host sync of the window
+        losses = evals()
+        imps = []
+        for c, loss in zip(chunks, losses):
+            improved = loss < c["best_loss"]
+            c["best"] = _select(improved, c["leaves"], c["best"])
+            c["best_loss"] = torch.where(improved, loss, c["best_loss"])
+            imps.append(improved)
+        imp = np.concatenate([x.cpu().numpy() for x in imps])   # the host sync of the window
         since_record = np.where(imp, 0, since_record + 1)
         if verbose:
-            ls = " ".join(f"{v * 1e3:7.4f}" for v in lo.loss.cpu().numpy())
+            ls = " ".join(f"{v * 1e3:7.4f}" for x in losses for v in x.cpu().numpy())
             print(f"  itr {cnt:>6} losses(1e-3) [{ls}] lr {lr:.5f}", flush=True)
 
-    return tree_unflatten(like, best), best_loss
+    out = devs[0] if mesh is None else mesh.first
+    best = [torch.cat([c["best"][i].to(out) for c in chunks]) for i in range(len(leaves))]
+    return (tree_unflatten(like, best),
+            torch.cat([c["best_loss"].to(out) for c in chunks]))
 
 
-def _batch_generators(seed: int, n: int, phase_idx: int, device: torch.device) -> list:
+def _batch_generators(seed: int, n: int, phase_idx: int, device) -> list:
     """One generator per slot, seeded from (seed, slot, phase): slot i of a
     batch trains alike whatever the other slots hold. phase_idx: the main
-    phases >= 0, the candidates' init -2, warm-up candidate c -5 - c."""
-    return [_frame_phase_generator(seed, i, phase_idx, device) for i in range(n)]
+    phases >= 0, the candidates' init -2, warm-up candidate c -5 - c.
+    `device`: one for every slot, or a list of each slot's device."""
+    devs = device if isinstance(device, (list, tuple)) else [device] * n
+    return [_frame_phase_generator(seed, i, phase_idx, d) for i, d in zip(range(n), devs)]
 
 
 def encode_images_batched(frames: Sequence[FrameData], cfgs: dict[str, CoolChicConfig],
@@ -163,7 +215,7 @@ def encode_images_batched(frames: Sequence[FrameData], cfgs: dict[str, CoolChicC
                           verbose: bool = True, rdoq: bool = True, profile: str = "ref",
                           on_image=None, lmbdas: Optional[Sequence[float]] = None,
                           monitor: Optional[EncoderMonitor] = None,
-                          device: str | torch.device = "cuda") -> list[dict]:
+                          device: str | torch.device = "cuda", mesh=None) -> list[dict]:
     """Encode N same-sized I frames as one batch on `device` and write one
     bitstream per image; returns a result dict per image (psnr_db, loss,
     rate_bpp, latent_rate_bpp, n_bytes, n_pixels).
@@ -173,10 +225,16 @@ def encode_images_batched(frames: Sequence[FrameData], cfgs: dict[str, CoolChicC
     warm-up noise follows each slot's λ (Preset.warmup_noise_parameter).
     `on_image(i, result)` is called as each image's file is written.
     `monitor` (optional) collects seconds per stage and the peak memory.
-    The port of coolchic_tpu/parallel/encode_batch.py:encode_images_batched,
-    less its mesh."""
-    dev = resolve_device(device)
+    `mesh` (parallel/batch.py:Mesh) splits the slots over its data slices
+    (_batched_phase), each slot's noise generators on its slice's device;
+    N must divide over them. The port of
+    coolchic_tpu/parallel/encode_batch.py:encode_images_batched."""
+    dev = resolve_device(device) if mesh is None else mesh.first
     n = len(frames)
+    slot_devs = [dev] * n
+    if mesh is not None:
+        slot_devs = [d for (a, b), d in zip(chunk_bounds(n, mesh.data),
+                                            mesh.data_devices()) for _ in range(a, b)]
     if len(out_paths) != n:
         raise ValueError(f"{len(out_paths)} output paths for {n} images")
     lmbdas_f = [float(x) for x in lmbdas] if lmbdas is not None else [None] * n
@@ -224,8 +282,8 @@ def encode_images_batched(frames: Sequence[FrameData], cfgs: dict[str, CoolChicC
             for c in range(n_candidates):
                 params_b, loss_b = _batched_phase(
                     init_batch(), targets_b, fcfg, wu_phase, monitor, False,
-                    noise_source=SlotNoise(_batch_generators(seed, n, -5 - c, dev)),
-                    lmbda_b=lmbda_b, noise_b=wu_noise_b)
+                    noise_source=SlotNoise(_batch_generators(seed, n, -5 - c, slot_devs)),
+                    lmbda_b=lmbda_b, noise_b=wu_noise_b, mesh=mesh)
                 if best is None:
                     best, best_loss = params_b, loss_b
                 else:
@@ -246,8 +304,8 @@ def encode_images_batched(frames: Sequence[FrameData], cfgs: dict[str, CoolChicC
         with monitor.timed(f"train_phase_{idx}"):
             params_b, _ = _batched_phase(
                 params_b, targets_b, fcfg, phase, monitor, verbose,
-                noise_source=SlotNoise(_batch_generators(seed, n, idx, dev)),
-                lmbda_b=lmbda_b)
+                noise_source=SlotNoise(_batch_generators(seed, n, idx, slot_devs)),
+                lmbda_b=lmbda_b, mesh=mesh)
         if verbose:
             print(f"phase {idx} done in {time.time() - t0:.1f}s", flush=True)
 

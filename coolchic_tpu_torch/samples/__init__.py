@@ -5,11 +5,8 @@ given by --device (cuda, the default, or cpu)."""
 
 import argparse
 
-# The JAX drivers' --cpu picks the JAX platform, and their batched encode
-# shards over every device present; the port runs on the one --device.
-_NO_JAX_FLAGS = ("--cpu selects the JAX package's platform: pass --device cpu. Encoding "
-                 "over several devices (the JAX package's mesh) is not ported yet "
-                 "(ROADMAP.md, item 1.12).")
+# The JAX drivers' --cpu picks the JAX platform; the port takes --device.
+_NO_JAX_FLAGS = "--cpu selects the JAX package's platform: pass --device cpu."
 
 
 def add_device_args(p: argparse.ArgumentParser) -> None:

@@ -1,5 +1,7 @@
-"""Batch-encode a set of same-sized images as ONE batched program on one
-card (parallel/encode_batch.py:encode_images_batched).
+"""Batch-encode a set of same-sized images as ONE batched program
+(parallel/encode_batch.py:encode_images_batched): on one card, or, with
+more than one card and an image count that divides over them, over a data
+mesh of every card (each card trains its share of the images).
 
 The dataset-sweep driver behind BD-rate tables: the reference runs one
 process per image (samples/encode.py:147-183); here the images are the
@@ -19,7 +21,11 @@ import glob
 import os
 import sys
 
+import torch
+
+from coolchic_tpu_torch.core.device import resolve_device
 from coolchic_tpu_torch.io.io import load_frame_data_from_file
+from coolchic_tpu_torch.parallel.batch import make_mesh
 from coolchic_tpu_torch.parallel.encode_batch import encode_images_batched
 from coolchic_tpu_torch.samples import add_device_args, check_device_args
 from coolchic_tpu_torch.train.presets import PresetDebug, PresetIntra
@@ -56,8 +62,13 @@ def main(argv: list[str] | None = None) -> int:
         intra_operating_points()[args.dec_cfg_residue], frames[0].img_size)}
     preset = (PresetIntra if args.recipe == "intra" else PresetDebug)(
         lmbda=args.lmbda, start_lr=args.start_lr, itr_main_training=args.n_itr)
+    mesh = None
+    n_cards = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 0
+    if n_cards > 1 and len(frames) % n_cards == 0:
+        mesh = make_mesh(n_cards, device=args.device)
+        print(f"sharding {len(frames)} images over {n_cards} cards")
     results = encode_images_batched(frames, cfgs, preset, out_paths, seed=args.seed,
-                                    profile=args.profile, device=args.device)
+                                    profile=args.profile, device=args.device, mesh=mesh)
 
     results_path = args.results or os.path.join(args.out_dir, "results.tsv")
     with open(results_path, "w") as f:

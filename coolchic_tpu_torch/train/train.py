@@ -17,8 +17,10 @@ Reference parity: coolchic/training/train.py (per-group optimizers, cosine
 LR stepping once per validation, linear temperature & noise schedules,
 patience that reloads the best model when schedule_lr is on), through
 coolchic_tpu/train/train.py:_make_fns_impl and train, whose lax.scan
-windows become a Python loop of steps here. The spatial-mesh branches are
-not ported.
+windows become a Python loop of steps here. With a space mesh (PhaseFns'
+and train()'s `spatial_mesh`) the forward splits the image's rows over the
+mesh (models/coolchic.py); the noise is drawn whole, as without one, so the
+draws are the unsharded ones, sliced.
 """
 
 from __future__ import annotations
@@ -179,9 +181,11 @@ class PhaseFns:
     def __init__(self, fcfg: FrameConfig, like: dict, quantizer_noise_type: str,
                  quantizer_type: str, dist_weight: Dict[str, float],
                  betas_model: tuple, betas_latent: tuple,
-                 precondition_frequency_model: int, cr: Optional[dict] = None):
+                 precondition_frequency_model: int, cr: Optional[dict] = None,
+                 mesh=None):
         self.fcfg = fcfg
         self.cr = cr
+        self.mesh = mesh   # a space mesh: the forward splits the image's rows
         self._wd = None   # (target, its Wasserstein fn): target features once
         self.like = like
         self.groups = group_tree(like)
@@ -217,7 +221,7 @@ class PhaseFns:
         out = frame_encoder_forward(
             tree_unflatten(self.like, leaves), self.fcfg, reference_frames=refs, noise=noise,
             quantizer_type=self.quantizer_type, soft_round_temperature=temp,
-            training=True, cr=self.cr)
+            training=True, cr=self.cr, mesh=self.mesh)
         return loss_function(out.decoded_image, out.rate, target, self.dist_weight, lmbda,
                              wasserstein_fn=self.wasserstein_fn(target))
 
@@ -281,7 +285,8 @@ class PhaseFns:
         """The decoder's view (hardround latents, bitdepth-rounded image)."""
         with torch.no_grad():
             out = frame_encoder_forward(tree_unflatten(self.like, leaves), self.fcfg,
-                                        reference_frames=refs, training=False, cr=self.cr)
+                                        reference_frames=refs, training=False, cr=self.cr,
+                                        mesh=self.mesh)
             return loss_function(out.decoded_image, out.rate, target, self.dist_weight,
                                  lmbda, wasserstein_fn=self.wasserstein_fn(target))
 
@@ -335,18 +340,23 @@ def index_tree(tree, i: int):
 
 def train(params: dict, fcfg: FrameConfig, target, phase: TrainerPhase, *,
           noise_source, cr: Optional[dict] = None, refs: Optional[list] = None,
-          monitor: Optional[EncoderMonitor] = None, verbose: bool = False) -> dict:
+          monitor: Optional[EncoderMonitor] = None, verbose: bool = False,
+          spatial_mesh=None) -> dict:
     """Run one training phase of one image; returns the best parameters
     found (tensors, no batch axis). `params`: one image's tensors on the
     device; `target`: its [1, C, H, W] (or planes); `refs`: a P/B frame's
     [1, 3, H, W] references; `noise_source` as in
     parallel/encode_batch.py:_batched_phase.
 
-    The port of coolchic_tpu/train/train.py:train (less the spatial mesh):
-    SOAP bases seeded from a first gradient, an eval before the first
-    window and after each, the best parameters kept, and after more than
-    patience / freq_valid windows without a record either a reload of the
-    best parameters (schedule_lr) or the end of the phase."""
+    The port of coolchic_tpu/train/train.py:train: SOAP bases seeded from
+    a first gradient, an eval before the first window and after each, the
+    best parameters kept, and after more than patience / freq_valid
+    windows without a record either a reload of the best parameters
+    (schedule_lr) or the end of the phase. `spatial_mesh`
+    (parallel/spatial.py): split this image's rows over the mesh's
+    devices in every step and eval; the SOAP seeding gradient stays whole,
+    as the JAX package computes it before it shards; the mesh's first
+    device holds the params."""
     monitor = monitor or EncoderMonitor()
     start_time = time.time()
     like = tree_map(lambda x: x[None], params)
@@ -354,7 +364,7 @@ def train(params: dict, fcfg: FrameConfig, target, phase: TrainerPhase, *,
     dev = leaves[0].device
     fns = PhaseFns(fcfg, like, phase.quantizer_noise_type, phase.quantizer_type,
                    phase.dist_weight, tuple(phase.betas_model), tuple(phase.betas_latent),
-                   phase.precondition_frequency_model, cr=cr)
+                   phase.precondition_frequency_model, cr=cr, mesh=spatial_mesh)
     opt = init_opt_state(leaves, fns.groups, fns.hp_weight, fns.hp_latent)
     lmbda = torch.full((1,), phase.lmbda, dtype=torch.float32, device=dev)
 
@@ -365,9 +375,17 @@ def train(params: dict, fcfg: FrameConfig, target, phase: TrainerPhase, *,
 
     # Reference parity: seed the SOAP eigenbases from the first gradient
     # (one extra gradient; the phase's first step then takes a fresh one).
+    # As in the JAX package, that gradient is the whole image's even with a
+    # space mesh: the eigh of its rank-one covariance leaves the basis of
+    # the null space arbitrary, so a gradient that differs by rounding
+    # would seed another basis and another trajectory.
     temp0 = linear_schedule(phase.softround_temperature, 0, phase.max_itr)
     noise0 = linear_schedule(phase.noise_parameter, 0, phase.max_itr)
-    grads = fns.grads(leaves, draw("seed", noise0)(), temp0, target, lmbda, refs)
+    seed_fns = fns if spatial_mesh is None else PhaseFns(
+        fcfg, like, phase.quantizer_noise_type, phase.quantizer_type, phase.dist_weight,
+        tuple(phase.betas_model), tuple(phase.betas_latent),
+        phase.precondition_frequency_model, cr=cr)
+    grads = seed_fns.grads(leaves, draw("seed", noise0)(), temp0, target, lmbda, refs)
     opt = seed_opt_state(opt, grads, fns.groups, fns.hp_weight)
 
     best = logs_from_loss(fns.eval(leaves, target, lmbda, refs))

@@ -32,7 +32,11 @@ display order, phase index), the role of _frame_phase_key in the JAX
 package; the streams differ from JAX's PRNG, so the port's encode of an
 image is not the JAX encode's bit for bit, only its equal in RD terms.
 
-Not ported yet: the spatial mesh.
+A frame too large for one device's activations splits its rows over a
+space mesh (`spatial_shard`, or `mesh`; parallel/spatial.py): the warm-up
+is then the serial tournament and each main phase the serial trainer,
+every candidate and phase training sharded, as the JAX package does
+(coolchic_tpu/train/video.py:150-204).
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from coolchic_tpu_torch.models.warp import shift_references, warp_fn
 from coolchic_tpu_torch.nnquant.quantize import quantize_coolchic
 from coolchic_tpu_torch.nnquant.rdoq import rdoq_coolchic
 from coolchic_tpu_torch.parallel.encode_batch import _batched_phase
+from coolchic_tpu_torch.parallel.spatial import spatial_mesh_for
 from coolchic_tpu_torch.train.encode import _target_from_frame, img_min_max
 from coolchic_tpu_torch.train.logs import (
     detailed_test,
@@ -83,7 +88,7 @@ from coolchic_tpu_torch.train.train import (
     test,
     train,
 )
-from coolchic_tpu_torch.train.warmup import warmup_batched
+from coolchic_tpu_torch.train.warmup import warmup, warmup_batched
 from coolchic_tpu_torch.utils.checkpoint import load_frame_encoder, save_frame_encoder
 from coolchic_tpu_torch.utils.codingstructure import CodingStructure, Frame
 from coolchic_tpu_torch.utils.parsecli import (
@@ -129,11 +134,23 @@ def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path
                      workdir: str, preset: Preset, cfg_args: dict[str, dict],
                      warp_filter_size: int = 8, seed: int = 0, verbose: bool = True,
                      rdoq: bool = True, tune: str = "mse", profile: str = "ref",
-                     device: str | torch.device = "cuda") -> dict:
+                     device: str | torch.device = "cuda", spatial_shard: int = 0,
+                     mesh=None) -> dict:
     """Encode one I, P or B frame on `device`; returns {payload bytes,
     logs, detailed logs, ...}. A P/B frame's decoded references are read
-    from the workdir; the decoded frame and the logs are written to it."""
+    from the workdir; the decoded frame and the logs are written to it.
+
+    `spatial_shard` > 1 splits this frame's training rows over that many
+    devices of `device`'s type (parallel/spatial.py:spatial_mesh_for: on
+    cuda that many cards must be there; on the CPU, shards of the CPU);
+    `mesh` (parallel/batch.py:Mesh) overrides it, every device of it one
+    shard, its first device the frame's (how one card gets two shards).
+    The trained params come back whole to that device for NN
+    quantization, RDOQ and the write."""
     dev = resolve_device(device)
+    sp_mesh = spatial_mesh_for(spatial_shard, dev, mesh)
+    if sp_mesh is not None:
+        dev = sp_mesh.first
     fdata = load_frame_data_from_file(video_path, frame.display_order + frame.frame_offset)
     frame.data = fdata
 
@@ -153,22 +170,30 @@ def encode_one_frame(frame: Frame, coding_structure: CodingStructure, video_path
 
     if preset.warmup.phases:
         noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, -1, dev))
+        # a sharded frame runs the serial tournament, each candidate sharded
         with monitor.timed("warmup"):
-            params = warmup_batched(candidates, preset, fcfg, target, noise_source=noise,
-                                    cr=cr, refs=refs, monitor=monitor, verbose=verbose)
+            if sp_mesh is None:
+                params = warmup_batched(candidates, preset, fcfg, target, noise_source=noise,
+                                        cr=cr, refs=refs, monitor=monitor, verbose=verbose)
+            else:
+                params = warmup(candidates, preset, fcfg, target, noise_source=noise, cr=cr,
+                                refs=refs, monitor=monitor, verbose=verbose,
+                                spatial_mesh=sp_mesh)
     else:
         params = candidates[0]
 
     # The main phases run the batched window at n = 1 with the frame's own
     # noise stream, as the JAX package's serial path does; a config with
-    # common randomness runs them through the serial trainer, as the JAX
-    # package does (its batched window carries no cr).
-    if any(v is not None for v in cr.values()):
+    # common randomness, or a sharded frame, runs them through the serial
+    # trainer, as the JAX package does (its batched window carries no cr
+    # and no space mesh).
+    if any(v is not None for v in cr.values()) or sp_mesh is not None:
         for idx, phase in enumerate(preset.training_phases):
             noise = TorchNoise(_frame_phase_generator(seed, frame.display_order, idx, dev))
             with monitor.timed(f"train_phase_{idx}"):
                 params = train(params, fcfg, target, phase, noise_source=noise, cr=cr,
-                               refs=refs, monitor=monitor, verbose=verbose)
+                               refs=refs, monitor=monitor, verbose=verbose,
+                               spatial_mesh=sp_mesh)
         params = tree_to_numpy(params)
     else:
         params_b = stack_trees([params])

@@ -6,12 +6,13 @@ training. The candidates are the batch of the batched phase
 (parallel/encode_batch.py), chunked to a pixel x candidate budget.
 
 The JAX package runs this batched tournament on accelerators and a serial
-one (one candidate at a time) on the CPU (coolchic_tpu/train/video.py:
-151-153); both keep the survivors by loss. The port uses the batched
-tournament on every device.
+one (one candidate at a time, `warmup`) on the CPU and for a spatially
+sharded frame (coolchic_tpu/train/video.py:150-156); both keep the
+survivors by loss. The port runs the batched tournament on every device,
+and the serial one for a sharded frame, each candidate training sharded.
 
 Reference parity: coolchic/training/warmup.py through
-coolchic_tpu/train/warmup.py:warmup_batched.
+coolchic_tpu/train/warmup.py:warmup_batched and warmup.
 """
 
 from __future__ import annotations
@@ -26,7 +27,13 @@ from coolchic_tpu_torch.models.frame import FrameConfig
 from coolchic_tpu_torch.parallel.encode_batch import _batched_phase
 from coolchic_tpu_torch.train.params import tree_map
 from coolchic_tpu_torch.train.presets import Preset, TrainerPhase
-from coolchic_tpu_torch.train.train import EncoderMonitor, index_tree, stack_trees
+from coolchic_tpu_torch.train.train import (
+    EncoderMonitor,
+    index_tree,
+    stack_trees,
+    test,
+    train,
+)
 
 
 def _train_phase_batched(stacked: dict, ph: TrainerPhase, fcfg: FrameConfig, target,
@@ -103,3 +110,34 @@ def warmup_batched(candidates: list[dict], preset: Preset, fcfg: FrameConfig, ta
                   f"[{ranked}]{chunk_note}", flush=True)
 
     return index_tree(stacked, 0)
+
+
+def warmup(candidates: list[dict], preset: Preset, fcfg: FrameConfig, target, *,
+           noise_source, cr: Optional[dict] = None, refs: Optional[list] = None,
+           monitor: Optional[EncoderMonitor] = None, verbose: bool = False,
+           spatial_mesh=None) -> dict:
+    """The serial tournament (coolchic_tpu/train/warmup.py:warmup): each
+    phase trains its surviving candidates one after another with the serial
+    trainer (train.train: SOAP seeding, the phase's schedules, patience),
+    scores each by its eval loss and keeps the best `candidates` for the
+    next phase; returns the winner's params (no batch axis).
+    `noise_source` serves every candidate in turn; `spatial_mesh` shards
+    each candidate's training (parallel/spatial.py)."""
+    monitor = monitor or EncoderMonitor()
+    ranked = [{"id": i, "params": p, "loss": None} for i, p in enumerate(candidates)]
+    for idx_phase, wu_phase in enumerate(preset.warmup.phases):
+        ph = wu_phase.training_phase
+        ranked = ranked[: wu_phase.candidates]
+        for cand in ranked:
+            cand["params"] = train(cand["params"], fcfg, target, ph,
+                                   noise_source=noise_source, cr=cr, refs=refs,
+                                   monitor=monitor, spatial_mesh=spatial_mesh)
+            logs = test(cand["params"], fcfg, target, cr=cr, dist_weight=ph.dist_weight,
+                        lmbda=ph.lmbda, refs=refs)
+            cand["loss"] = logs.loss
+            if verbose:
+                print(f"  warmup phase {idx_phase} candidate {cand['id']}: "
+                      f"loss {logs.loss * 1e3:.4f} psnr {logs.psnr_db:.3f} "
+                      f"bpp {logs.total_rate_latent_bpp:.4f}", flush=True)
+        ranked.sort(key=lambda c: c["loss"])
+    return ranked[0]["params"]

@@ -90,15 +90,15 @@ def vgg16_features(x: torch.Tensor, weights: dict | None = None) -> list[torch.T
             x = x[:, :, : h // 2 * 2, : ww // 2 * 2]
             x = x.reshape(b, c, h // 2, 2, ww // 2, 2).amax(dim=(3, 5))
             continue
-        x = torch.relu(F.conv2d(x, w[f"features.{conv_idx}.weight"],
-                                w[f"features.{conv_idx}.bias"], padding=1))
+        x = torch.relu(F.conv2d(x, w[f"features.{conv_idx}.weight"].to(x.dtype),
+                                w[f"features.{conv_idx}.bias"].to(x.dtype), padding=1))
         if conv_idx + 1 in _DESIRED_RELU:
             results.append(x)
     return results
 
 
 def _lowpass(x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    k = torch.as_tensor(_LOWPASS, device=x.device)
+    k = torch.as_tensor(_LOWPASS, device=x.device).to(x.dtype)
     return F.conv2d(x, k, stride=stride, padding=1)
 
 
@@ -131,7 +131,8 @@ def wasserstein_distortion(fa: torch.Tensor, fb: torch.Tensor,
     means_a, vars_a = _multiscale_stats(fa, num_levels)
     means_b, vars_b = _multiscale_stats(fb, num_levels)
 
-    log2_sigma = torch.full((1, 1, h, w), float(LOG2_SIGMA), device=fa.device)
+    log2_sigma = torch.full((1, 1, h, w), float(LOG2_SIGMA), dtype=fa.dtype,
+                            device=fa.device)
     wd_maps = [torch.square(fa - fb)]
     for ma, mb, va, vb in zip(means_a, means_b, vars_a, vars_b):
         sa = torch.sqrt(_safe_clamp_min(va, 5e-7))

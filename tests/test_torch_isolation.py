@@ -43,11 +43,71 @@ def test_port_imports_no_jax():
                  "models.globalmotion", "parallel.gop", "utils.results", "train.encode",
                  "samples.getcodingstruct", "samples.encode", "samples.encode_batch",
                  "samples.encode_sweep", "samples.encode_kodak_batch",
-                 "samples.decode_batch"):
+                 "samples.decode_batch", "parallel.batch", "parallel.spatial",
+                 "parallel.dcn"):
         assert f"coolchic_tpu_torch.{name}" in res["modules"]
     assert res["leaked"] == []
     assert res["cudnn_tf32"] is False
     assert res["matmul_precision"] == "highest"
+
+
+_LEAKED = r"""
+import json, sys
+leaked = sorted(n for n in sys.modules
+                if n == "jax" or n.startswith("jax.") or n == "coolchic_tpu"
+                or n.startswith("coolchic_tpu."))
+print(json.dumps({"leaked": leaked}))
+"""
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py, imported with every phase's modules (its phases
+    import them inside their functions), loads no JAX."""
+    probe = ("import ast, importlib, sys\n"
+             "import chip_smoke\n"
+             "tree = ast.parse(open('chip_smoke.py').read())\n"
+             "for node in ast.walk(tree):\n"
+             "    if isinstance(node, ast.ImportFrom) and node.module:\n"
+             "        importlib.import_module(node.module)\n"
+             "    elif isinstance(node, ast.Import):\n"
+             "        [importlib.import_module(a.name) for a in node.names]\n" + _LEAKED)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1])["leaked"] == []
+
+
+def test_dcn_workers_import_no_jax():
+    """The multi-process run's workers (parallel/dcn.py, two processes,
+    gloo on the CPU) pass their checks and load no JAX."""
+    from coolchic_tpu_torch.parallel.dcn import _free_port
+
+    port = _free_port()
+    worker = "import sys\nfrom coolchic_tpu_torch.parallel import dcn\ndcn.main(sys.argv[1:])\n"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", worker + _LEAKED, "--process_id", str(i), "--num_processes",
+         "2", "--coordinator", f"localhost:{port}", "--local_devices", "2", "--device",
+         "cpu", "--backend", "gloo"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        assert f"dcn worker {i}/2: OK" in out
+        assert json.loads(out.strip().splitlines()[-1])["leaked"] == []
+
+
+def test_dcn_cli_defaults_to_cuda():
+    """`python -m coolchic_tpu_torch.parallel.dcn` asks for the card by
+    default, and refuses without one rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    out = subprocess.run([sys.executable, "-m", "coolchic_tpu_torch.parallel.dcn"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "OK" not in out.stdout
 
 
 IMG = str(REPO / "tests/data/192x128_kodim15.png")
@@ -125,13 +185,16 @@ def _sample_encode_batch(tmp_path):
 @pytest.mark.parametrize("entry", ["decode_video", "decode_images", "resolve_device",
                                    "cc_encode", "encode_one_frame", "encode_video",
                                    "encode_wave_group", "encode_images_batched",
-                                   "encode_image_to_bitstream", "samples.encode_batch"])
+                                   "encode_image_to_bitstream", "samples.encode_batch",
+                                   "make_mesh", "make_mesh.devices", "launch_dcn_dryrun"])
 def test_default_device_refuses_cpu_fallback(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from coolchic_tpu_torch import cc_encode
     from coolchic_tpu_torch.bitstream.decode import decode_images, decode_video
     from coolchic_tpu_torch.core.device import resolve_device
+    from coolchic_tpu_torch.parallel.batch import make_mesh
+    from coolchic_tpu_torch.parallel.dcn import launch_dcn_dryrun
 
     ref_file = str(REPO / "results/round4/h2h_kodim15_v3/kodim15_p012_l0.02.cool")
     call = {"decode_video": lambda: decode_video(ref_file),
@@ -144,7 +207,10 @@ def test_default_device_refuses_cpu_fallback(entry, tmp_path):
             "encode_wave_group": lambda: _encode_wave_group(tmp_path),
             "encode_images_batched": lambda: _encode_images_batched(tmp_path),
             "encode_image_to_bitstream": lambda: _encode_image(tmp_path),
-            "samples.encode_batch": lambda: _sample_encode_batch(tmp_path)}[entry]
+            "samples.encode_batch": lambda: _sample_encode_batch(tmp_path),
+            "make_mesh": lambda: make_mesh(2),
+            "make_mesh.devices": lambda: make_mesh(devices=["cuda:0", "cuda:0"]),
+            "launch_dcn_dryrun": lambda: launch_dcn_dryrun(backend="gloo")}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     assert not (tmp_path / "o.cool").exists()

@@ -122,4 +122,4 @@ def test_jax_cpu_flag_refused(driver, capsys):
         driver.main([*argv, "--cpu"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "--device cpu" in err and "1.12" in err
+    assert "--device cpu" in err and "not ported" not in err

@@ -34,12 +34,14 @@ torch.set_num_threads(2)
 CARRIED_CROP = (64, 96)
 
 
-def carried_steps(n, lmbdas, noises, crop=CARRIED_CROP):
+def carried_steps(n, lmbdas, noises, crop=CARRIED_CROP, mesh=None, n_steps=N_STEPS):
     """JAX trains each slot 12 steps, then one window of 11 steps; before
     each step the port takes JAX's parameters and SOAP state and the same
     noise draws (after the refresh step its own refreshed state), and after
     it every coordinate is held within 5e-2 * lr of JAX's. Slot i trains at
-    rate point lmbdas[i] with noise level noises[i]."""
+    rate point lmbdas[i] with noise level noises[i]. `mesh`: the port's
+    steps split the image's rows over it (parallel/spatial.py); `n_steps`:
+    the first steps of the window only."""
     jf, pf, stacked, target = _setup(n, perturb=True, crop=crop)
     ph = JPhase(**(MAIN if n == 1 else WARMUP))
     pfreq = ph.precondition_frequency_model
@@ -80,12 +82,12 @@ def carried_steps(n, lmbdas, noises, crop=CARRIED_CROP):
     like = tree_from_numpy(_stack_np([p for p, _, _ in slots]), "cpu")
     treedef = jax.tree_util.tree_structure(slots[0][0])
     pfns = PhaseFns(pf, like, ph.quantizer_noise_type, ph.quantizer_type, ph.dist_weight,
-                    tuple(ph.betas_model), tuple(ph.betas_latent), pfreq)
+                    tuple(ph.betas_model), tuple(ph.betas_latent), pfreq, mesh=mesh)
     level = torch.tensor(noises, dtype=torch.float32)
     lmbda = torch.tensor(lmbdas, dtype=torch.float32)
     targets = torch.tensor(target).expand(n, -1, -1, -1)
     after_refresh = None
-    for t in range(1, N_STEPS + 1):
+    for t in range(1, n_steps + 1):
         refresh = t % pfreq == 0
         # the port's step from JAX's parameters and state; after the
         # refresh step, from the port's own refreshed state
