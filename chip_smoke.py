@@ -20,8 +20,8 @@ Phases, each fatal on failure:
      kernel launches counted, grids bit-exact against the host decode, float
      output within 1e-4 of the port's `ref`-profile decode and 8-bit planes
      within one code value;
-  4. timing with CUDA events (warm-up, median of 5; the plain version, no
-     warm-up, median of 3): batch decode, kernel
+  4. timing with CUDA events (warm-up, median of 5; the plain version: its
+     level-0 call of phase 2, host clock): batch decode, kernel
      per level at G = 8, kernel and plain version on one level-0 grid, the
      host C++ decode of that grid as a yardstick, and the kernel's bound;
      level 0 at G = 1, 8 and 32; the ablation line: level 0 at G = 8 for
@@ -105,8 +105,8 @@ Phases, each fatal on failure:
      decode_video of the 5-frame file (10 kernel launches, every grid
      kernel == host C++, each frame within phase 8's bars against the
      encoder's saved frame), ms per step of the G = 2 wave beside phase 8's
-     B step, slot 0's first window against the frame stepping alone
-     (carried step by step, within 5e-2 * lr), peak memory;
+     B step, the first 20 steps of slot 0's first window against the frame
+     stepping alone (carried step by step, within 5e-2 * lr), peak memory;
  10. multi-device on the one card, the mesh (cuda:0, cuda:0): phase 3's
      first frame tiled 4 x 4 (2048x3072, hop); (a) one training step with
      the rows split over 2 space shards against the whole step (loss
@@ -116,8 +116,7 @@ Phases, each fatal on failure:
      rate's; (b) the decode-side float path on the mesh against the whole
      eval forward (within 2e-5; make_spatial_synthesis's 8-bit image
      within one code); (c) encode_one_frame whole and with the 2-shard mesh
-     (60 main steps, no warm-up, `tpu`, no RDOQ; cuDNN and torch in
-     deterministic mode, so that each run repeats): PSNR within 0.1 dB,
+     (60 main steps, no warm-up, `tpu`, no RDOQ): PSNR within 0.1 dB,
      bytes within 5 %, seconds per stage; the sharded file's decode_video
      (launches, routes, each level's route and kernel ms, every grid
      kernel == host C++, the decoder's PSNR within 0.3 dB of the
@@ -125,16 +124,30 @@ Phases, each fatal on failure:
      (d) 4 of phase 3's frames (hop, debug): make_batched_window over a
      (2, 1) data mesh against a 1-slice mesh from a carried state (every
      coordinate within 5e-2 * lr), ms per step both ways;
-     encode_images_batched (`tpu`, no RDOQ, deterministic mode) of the 4
-     without a mesh, over the data mesh, and of the first 2 alone (the
-     mesh's first 2 files byte for byte theirs), PSNR and bytes image by
-     image, the mesh's files decoded through the kernel (every grid
+     encode_images_batched (`tpu`, no RDOQ) of the 4 over the data mesh
+     and of the first 2 alone (the mesh's first 2 files byte for byte
+     theirs), PSNR and bytes image by image, the mesh's files decoded
+     through the kernel (every grid
      kernel == host C++, PSNR within 0.3 dB); (e) the two-process run,
-     both ranks on the card, gloo.
+     both ranks on the card, gloo;
+ 11. reproducibility at the port's defaults (cuDNN deterministic): (a)
+     phase 5's intra CLI run again into a new workdir, (b) phase 8's P2
+     encoded again from I0, (c) encode_images_batched of phase 10d's 2
+     frames alone at lambda (1e-3, 4e-3) against 10d's batch at (1e-3,
+     1e-3), (d) phase 10c's whole 2048x3072 encode again: slot 0's files
+     and each pair of files byte-identical, every new file decoded back
+     through the kernel (launches counted, every grid kernel == host C++);
+     (e) every path that trains (training_paths: the n = 1 I step, P and B
+     steps, a G = 8 batched window, a 2048x3072 step on 2 row shards, the
+     serial Wasserstein trainer) at the defaults and under
+     torch.use_deterministic_algorithms(True), which must raise nothing
+     and end on the same parameters, bit for bit;
+     (f) ms per training step at n = 1, G = 8 and 2048x3072 whole, with
+     cuDNN deterministic and, flipped here only, not.
 
 The whole run prints the ablation line, the encode, RDOQ, Wasserstein,
-video, batched encode, wave and multi-device lines, a {"kernels": [...]}
-line (launches: the default CLI's, phase 6c; every
+video, batched encode, wave, multi-device and reproducibility lines, a
+{"kernels": [...]} line (launches: the default CLI's, phase 6c; every
 path's in launches_by_path), then the card line, and ends with
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA card or outside a checkout of the repo.
@@ -145,6 +158,7 @@ from __future__ import annotations
 import copy
 import glob
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -157,10 +171,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_IMAGES = 8
 N_TIMED = 5
-# The plain version takes ~30 s a level-0 grid (thousands of eager
-# launches) and its time is no yardstick: phase 4 times it once, to keep
-# the run's time.
-N_TIMED_PLAIN = 1
 # H100 SXM peaks (NVIDIA data sheet): HBM
 # rate, and the CUDA-core (non-tensor) rate, at which int32 multiply-adds
 # issue at most.
@@ -180,6 +190,18 @@ STEP_GRAD_TOL = 1e-3
 # leaf, both steps taking the ARM's branches as f64 takes them, and on the
 # largest rounding of the ARM's pre-activations and probabilities.
 WASS_F64_FACTOR = 10.0
+# Phase 5's intra CLI options, beside the input and output (phase 11a too).
+INTRA_ARGV = ["--dec_cfg_residue", "hop", "--recipe", "debug", "--profile", "tpu",
+              "--no_rdoq", "--lmbda", "1e-3"]
+# Phase 8's rate point (video_cli_argv).
+VIDEO_LMBDA = 5e-5
+# Phase 11: the short phase every path that trains runs (two windows of one
+# step after the SOAP seeding, the schedules held).
+PATH_PHASE = dict(lmbda=1e-3, lr=1e-2, max_itr=2, freq_valid=1, patience=100000,
+                  quantizer_type="softround", quantizer_noise_type="gaussian",
+                  softround_temperature=(0.3, 0.3), noise_parameter=(0.25, 0.25),
+                  precondition_frequency_model=2)
+WASSERSTEIN_WEIGHTS = {"mse": 0.2, "wasserstein": 0.8 / 200}   # the CLI's --tune wasserstein
 ABLATE_PARTS = (("taps", 1), ("arm", 2), ("div", 4), ("search", 8), ("refill", 16),
                 ("barrier", 32))
 
@@ -439,8 +461,7 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
     wfd.KERNEL.launches = 0
     t0 = time.time()
     rc_main = cc_encode.main(["-i", str(src), "-o", str(out), "--workdir", str(workdir),
-                              "--dec_cfg_residue", "hop", "--recipe", "debug", "--profile",
-                              "tpu", "--no_rdoq", "--lmbda", "1e-3", "--device", "cuda"])
+                              *INTRA_ARGV, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = wfd.KERNEL.launches
@@ -704,7 +725,10 @@ def rdoq_phase(dev, p5: Path, work: Path) -> dict:
         shifts, chunk = setups[0][:2]
         flat = R._flat(params["residue"], cfg, module, "weight")
         fb = R._flat(params["residue"], cfg, module, "bias")
-        idxs = np.random.default_rng(0).permutation(flat.size)[:chunk]
+        # a quarter of a chunk for the synthesis: at a full chunk its CPU
+        # probe is among the script's longest calls, and its time is bounded
+        n_idx = max(1, chunk // 4) if module == "synthesis" else chunk
+        idxs = np.random.default_rng(0).permutation(flat.size)[:n_idx]
         q = float(2.0 ** q_shift[(module, "weight")])
         vals = flat[idxs][:, None] + np.asarray(shifts, np.float32)[None, :] * np.float32(q)
         res, secs = [], []
@@ -1009,8 +1033,9 @@ def synthetic_clip(frame, path: Path, n_frames: int = 3) -> None:
 
 
 def file_items(path: Path) -> list:
-    """Every cool-chic of a multi-frame `tpu`-profile file: [(display
-    index, frame type, cc name, (header, nn bytes, latent bytes))]."""
+    """Every cool-chic of a multi-frame `tpu`-profile file, or of the
+    frames it holds so far: [(display index, frame type, cc name, (header,
+    nn bytes, latent bytes))]."""
     from coolchic_tpu_torch.bitstream.headers import (
         TPU_PROFILE_MAGIC,
         CoolChicHeader,
@@ -1023,6 +1048,8 @@ def file_items(path: Path) -> list:
     vh, rest = VideoHeader.read(rest[len(TPU_PROFILE_MAGIC):])
     out = []
     for _ in range(vh.n_frames):
+        if not rest:
+            break
         fh, rest = FrameHeader.read(rest)
         for name in ["residue"] + (["motion"] if fh.frame_type != "I" else []):
             ch, rest = CoolChicHeader.read(rest)
@@ -1186,6 +1213,18 @@ def step_ms_inter(dev, params, fcfg, tgt, phase, refs, n: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events[1:])
 
 
+def video_cli_argv(clip: Path, out: Path, wd: Path) -> list:
+    """Phase 8's CLI arguments but --coding_idx and --no_rdoq. The CLI's
+    decode-back holds the real rate within 20 % of the encoder's estimate,
+    which leaves out the `tpu` profile's per-stream overhead (~2 KB a frame
+    here: 256 streams on levels 0 and 1 of the residue). The clip's B frame
+    is well predicted: at lambda 1e-3 it costs ~4 KB and fails that bar
+    (ROADMAP.md Queue 3), at 5e-5 it does not."""
+    return ["-i", str(clip), "-o", str(out), "--workdir", str(wd), "--n_frames", "3",
+            "--intra_pos", "0", "--p_pos", "-1", "--recipe", "debug", "--profile", "tpu",
+            "--lmbda", str(VIDEO_LMBDA), "--device", "cuda"]
+
+
 def video_phase(dev, frame, work: Path) -> dict:
     """Phase 8: the I, P and B frames of a synthetic 512x768 clip through
     the CLI on the card, the file decoded, and the card held against the
@@ -1224,10 +1263,8 @@ def video_phase(dev, frame, work: Path) -> dict:
     # overhead (~2 KB a frame here: 256 streams on levels 0 and 1 of the
     # residue). The clip's B frame is well predicted: at lambda 1e-3 it
     # costs ~4 KB and fails that bar (ROADMAP.md Queue 3), at 5e-5 it does not.
-    lmbda = 5e-5
-    base = ["-i", str(clip), "-o", str(out), "--workdir", str(wd), "--n_frames", "3",
-            "--intra_pos", "0", "--p_pos", "-1", "--recipe", "debug", "--profile", "tpu",
-            "--lmbda", str(lmbda), "--device", "cuda"]
+    lmbda = VIDEO_LMBDA
+    base = video_cli_argv(clip, out, wd)
 
     # ------------------------------------------------ the encodes, as a user runs them
     frames = {}
@@ -1242,8 +1279,8 @@ def video_phase(dev, frame, work: Path) -> dict:
         torch.cuda.synchronize()
         wall = time.time() - t0
         check(rc == 0, f"cc_encode {f.frame_type}{f.display_order} exited {rc}")
-        if f.frame_type == "I":
-            shutil.copy(out, work / "i_only.cool")
+        if f.frame_type != "B":   # the file as it stands after I0, after P2
+            shutil.copy(out, work / f"{'i' if f.frame_type == 'I' else 'ip'}_only.cool")
         stem = f"{f.display_order:04d}"
         stages = json.loads((wd / f"{stem}-encoder_stages.json").read_text())
         head, row = (wd / f"{stem}-logs_detailed.tsv").read_text().splitlines()
@@ -1417,10 +1454,8 @@ def video_phase(dev, frame, work: Path) -> dict:
     wp.mkdir()
     shutil.copy(wd / saved_name(0), wp)
     shutil.copy(work / "i_only.cool", wp / "out.cool")
-    rc = cc_encode.main(["-i", str(clip), "-o", str(wp / "out.cool"), "--workdir", str(wp),
-                         "--n_frames", "3", "--intra_pos", "0", "--p_pos", "-1", "--recipe",
-                         "debug", "--profile", "tpu", "--lmbda", str(lmbda), "--device", "cuda",
-                         "--coding_idx", "1", "--no_rdoq"])
+    rc = cc_encode.main([*video_cli_argv(clip, wp / "out.cool", wp), "--coding_idx", "1",
+                         "--no_rdoq"])
     check(rc == 0, f"cc_encode P --no_rdoq exited {rc}")
     params, fcfg, side = load_frame_encoder(str(wp / "0002-frame_encoder.npz"))
     ref_i = load_frame_data_from_file(str(wd / saved_name(0)))
@@ -1655,8 +1690,9 @@ def wave_phase(dev, frame, p8: Path, work: Path, b_step_ms: float) -> dict:
     recipe, `tpu`, no RDOQ); decode_video of the file with its kernel
     launches, every grid kernel == host C++, each frame within phase 8's
     bars against the encoder's saved frame; ms per step of the G = 2 wave
-    beside phase 8's B step; slot 0's first window against the same frame
-    stepping alone, carried step by step; peak memory."""
+    beside phase 8's B step; the first 20 steps of slot 0's first window
+    against the same frame stepping alone, carried step by step; peak
+    memory."""
     import shutil
 
     import numpy as np
@@ -1747,7 +1783,7 @@ def wave_phase(dev, frame, p8: Path, work: Path, b_step_ms: float) -> dict:
         refs.append([convert_420_to_444(load_frame_data_from_file(
             str(wd / saved_name(i))).data).astype(np.float32)
             for i in fcfg_d.index_references])
-    n_win = min(phase.freq_valid, phase.max_itr)
+    n_win = min(phase.freq_valid, phase.max_itr, 20)   # 20 steps, to keep the script's time
     steps = batch_steps("[9b]", dev, params, fcfg, tgts, phase, refs, n=n_win - 1,
                         alone_slot0=True)
     print(f"[9b] wave training step at G = 2 ({h}x{w}, residue hop + motion mop, filter 8): "
@@ -1841,11 +1877,113 @@ def main_only_preset(steps: int = 60, freq_valid: int = 20):
     return MainOnly(lmbda=1e-3, start_lr=1e-2, itr_main_training=steps)
 
 
+def training_paths(dev, images, big) -> dict:
+    """Every path of the port that trains, each as a short run through its
+    own entry point: {name: fn() -> the parameters it ends on (tensors)}.
+    Each fn seeds everything it draws, so two calls compute the same thing
+    unless an op of the path is not deterministic. `images` [G, 3, H, W]
+    in [0, 1] (numpy): slot 0 is the target of the I, P, B and Wasserstein
+    runs, the G slots the batched window's; `big` [1, 3, H2, W2] is split
+    over 2 row shards of a mesh that names `dev` twice. Runs on any device
+    (the tests run it on the CPU at small crops)."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.models.frame import FrameConfig, frame_cr_grids, frame_encoder_init
+    from coolchic_tpu_torch.parallel.batch import (
+        batched_init,
+        make_batched_window,
+        make_mesh,
+        phase_key,
+    )
+    from coolchic_tpu_torch.parallel.encode_batch import _batched_phase
+    from coolchic_tpu_torch.parallel.spatial import make_spatial_train
+    from coolchic_tpu_torch.train.params import tree_leaves
+    from coolchic_tpu_torch.train.presets import TrainerPhase
+    from coolchic_tpu_torch.train.train import EncoderMonitor, SlotNoise, TorchNoise, train
+    from coolchic_tpu_torch.utils.parsecli import (
+        coolchic_config_from_args,
+        intra_operating_points,
+        motion_operating_points,
+        residue_operating_points,
+    )
+
+    G, _, H, W = images.shape
+    phase = TrainerPhase(**PATH_PHASE)
+    tg = torch.as_tensor(np.asarray(images, np.float32), device=dev)
+
+    def gens(n, seed=40):
+        return [torch.Generator(device=dev).manual_seed(seed + i) for i in range(n)]
+
+    def intra(size, tune="mse"):
+        return FrameConfig(coolchic_cfg={"residue": coolchic_config_from_args(
+            intra_operating_points()["hop"], size, tune=tune)})
+
+    def i_step():
+        params, _ = batched_init(intra((H, W)), phase, 1, seed=0, device=dev)
+        best, loss = _batched_phase(params, tg[:1], intra((H, W)), phase,
+                                    EncoderMonitor(device=dev), False,
+                                    noise_source=SlotNoise(gens(1)))
+        return tree_leaves(best) + [loss]
+
+    def inter_step(ft):
+        # display order and references as in a 3-frame I0 P2 B1 GOP; the
+        # references are the target shifted by a few pixels
+        disp, ref_idx = {"P": (2, (0,)), "B": (1, (0, 2))}[ft]
+        fcfg = FrameConfig(coolchic_cfg={
+            "residue": coolchic_config_from_args(residue_operating_points()["hop"], (H, W),
+                                                 coolchic_name="residue", frame_type=ft),
+            "motion": coolchic_config_from_args(motion_operating_points()["mop"], (H, W),
+                                                coolchic_name="motion", frame_type=ft)},
+            frame_type=ft, frame_data_type="yuv420", index_references=ref_idx,
+            frame_display_index=disp)
+        x = tg[:1]
+        target = {"y": x[:, :1], "u": x[:, 1:2, ::2, ::2].contiguous(),
+                  "v": x[:, 2:3, ::2, ::2].contiguous()}
+        refs = [torch.roll(x, (2 * r - 1, 3 - r), dims=(-2, -1)) for r in ref_idx]
+        params, _ = batched_init(fcfg, phase, 1, seed=0, device=dev)
+        best, loss = _batched_phase(params, target, fcfg, phase, EncoderMonitor(device=dev),
+                                    False, noise_source=SlotNoise(gens(1)), refs_b=refs)
+        return tree_leaves(best) + [loss]
+
+    def batched_window():
+        params, opt = batched_init(intra((H, W)), phase, G, seed=0, device=dev)
+        params, _, _ = make_batched_window(intra((H, W)), phase_key(phase), 2,
+                                           make_mesh(devices=[dev]))(
+            params, opt, gens(G), phase.lr, 0.3, 0.25, tg)
+        return tree_leaves(params)
+
+    def spatial_step():
+        fcfg = intra(tuple(big.shape[-2:]))
+        window, _, prepare = make_spatial_train(fcfg, phase_key(phase),
+                                                make_mesh(devices=[dev, dev], space=2), 2)
+        params = frame_encoder_init(torch.Generator(device=dev).manual_seed(0), fcfg,
+                                    device=dev)
+        params, opt, target, key = prepare(params, big, seed=3)
+        return tree_leaves(window(params, opt, key, target, phase.lr, 0.3, 0.25)[0])
+
+    def wasserstein_step():
+        fcfg = intra((H, W), "wasserstein")
+        params = frame_encoder_init(torch.Generator(device=dev).manual_seed(0), fcfg,
+                                    device=dev)
+        best = train(params, fcfg, tg[:1],
+                     TrainerPhase(**{**PATH_PHASE, "dist_weight": WASSERSTEIN_WEIGHTS}),
+                     noise_source=TorchNoise(gens(1)[0]), cr=frame_cr_grids(fcfg, dev))
+        return tree_leaves(best)
+
+    return {"I step (_batched_phase, n = 1)": i_step,
+            "P step (_batched_phase, refs)": lambda: inter_step("P"),
+            "B step (_batched_phase, refs)": lambda: inter_step("B"),
+            f"batched window (make_batched_window, G = {G})": batched_window,
+            f"{big.shape[-2]}x{big.shape[-1]} step on 2 row shards (make_spatial_train)":
+                spatial_step,
+            "serial Wasserstein step (train)": wasserstein_step}
+
+
 def data_mesh_phase(dev, four: list, work: Path) -> dict:
     """Phase 10d: the data mesh (cuda:0, cuda:0) over 4 512x768 frames;
     make_batched_window split 2 + 2 against unsplit from a carried state,
-    and encode_images_batched unsplit, over the mesh and of the first 2
-    alone."""
+    and encode_images_batched over the mesh and of the first 2 alone."""
     import numpy as np
     import torch
 
@@ -1885,14 +2023,13 @@ def data_mesh_phase(dev, four: list, work: Path) -> dict:
         return [torch.Generator(device=dev).manual_seed(seed + i) for i in range(4)]
 
     # make_batched_window from a carried state (one window of the 4 slots
-    # from batched_init). At cuDNN's defaults: ms per step split 2 + 2 and
-    # unsplit, each timed on its second call. In deterministic mode: each
-    # data slice's chunk against its own 2 slots alone on a 1-slice mesh,
-    # which compute at the chunk's batch size (1e-6, as
-    # tests/test_torch_batch_mesh.py); the split against the unsplit 4 is
-    # reported, not held: a batch of 2 rounds otherwise than a batch of 4
-    # on the card, and SOAP's normalized update in a carried eigenbasis
-    # turns that rounding into up to ~1e-3 in a window.
+    # from batched_init): ms per step split 2 + 2 and unsplit, each timed on
+    # its second call; each data slice's chunk against its own 2 slots
+    # alone on a 1-slice mesh, which compute at the chunk's batch size
+    # (1e-6, as tests/test_torch_batch_mesh.py); the split against the
+    # unsplit 4 is reported, not held: a batch of 2 rounds otherwise than a
+    # batch of 4 on the card, and SOAP's normalized update in a carried
+    # eigenbasis turns that rounding into up to ~1e-2 in a window.
     p4, o4 = batched_init(fcfg4, phase, 4, seed=0, device=dev)
     p4, o4, _ = make_batched_window(fcfg4, phase_key(phase), n_win, one_slice)(
         p4, o4, gens(20), *args)
@@ -1911,16 +2048,10 @@ def data_mesh_phase(dev, four: list, work: Path) -> dict:
             e1.record()
             torch.cuda.synchronize()
         ms_d[name] = e0.elapsed_time(e1) / n_win
+    split = win["split"][1]
     spread = {"unsplit run to run": worst(*win["unsplit"]),
-              "split against unsplit": worst(win["split"][1], win["unsplit"][1])}
-    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    split = make_batched_window(fcfg4, phase_key(phase), n_win, data_mesh)(
-        p4, o4, gens(40), *args)[0]
-    spread["split against unsplit, deterministic"] = worst(split, make_batched_window(
-        fcfg4, phase_key(phase), n_win, one_slice)(p4, o4, gens(40), *args)[0])
+              "split run to run": worst(*win["split"]),
+              "split against unsplit": worst(split, win["unsplit"][1])}
     worst_d = 0.0
     for a, b in ((0, 2), (2, 4)):
         alone = make_batched_window(fcfg4, phase_key(phase), n_win, one_slice)(
@@ -1928,23 +2059,23 @@ def data_mesh_phase(dev, four: list, work: Path) -> dict:
             tg4[a:b])[0]
         worst_d = max(worst_d, worst(_sliced(split, slice(a, b)), alone))
     print(f"[10d] make_batched_window of 4 slots from a carried state, {n_win} steps, over the "
-          f"(2, 1) data mesh (deterministic): each slice's chunk against its 2 slots alone, "
+          f"(2, 1) data mesh: each slice's chunk against its 2 slots alone, "
           f"worst coordinate {worst_d:.2e} (bar 1e-6); worst coordinate " + ", ".join(
               f"{k} {v:.2e}" for k, v in spread.items()) + f"; a step at G = 4 split 2 + 2 "
-          f"{ms_d['split']:.2f} ms, unsplit {ms_d['unsplit']:.2f} ms (cuDNN's defaults, CUDA "
-          f"events, mean of the window)", flush=True)
+          f"{ms_d['split']:.2f} ms, unsplit {ms_d['unsplit']:.2f} ms (CUDA events, mean of the "
+          f"window)", flush=True)
     check(worst_d <= 1e-6, f"10d split window {worst_d}")
     del p4, o4, win, split, alone, tg4
     torch.cuda.empty_cache()
 
-    # encode_images_batched, still in deterministic mode (as 10c, so that
-    # each call repeats): the 4 images unsplit, over the data mesh, and the
-    # first slice's 2 images alone (slot i seeds from (seed, i), so the
-    # mesh's first slice computes what a batch of those 2 does): the first
-    # slice's files must be those of the 2 alone, byte for byte; the
-    # 4-image call differs from the mesh's by the batch size's rounding,
-    # which a fresh trajectory amplifies (reported, not held).
-    runs = (("unsplit", four, None), ("mesh", four, data_mesh), ("first 2 alone", four[:2], None))
+    # encode_images_batched: the 4 images over the data mesh, and the first
+    # slice's 2 images alone (slot i seeds from (seed, i), so the mesh's
+    # first slice computes what a batch of those 2 does): the first slice's
+    # files must be those of the 2 alone, byte for byte (phase 11c holds a
+    # mixed-lambda batch of the 2 against them). A 4-image call without the
+    # mesh differs from the mesh's by the batch size's rounding, which a
+    # fresh trajectory amplifies; it is not run, to keep the script's time.
+    runs = (("mesh", four, data_mesh), ("first 2 alone", four[:2], None))
     batch = {}
     for name, imgs, m in runs:
         paths = [str(work / f"{name.replace(' ', '_')}{k}.cool") for k in range(len(imgs))]
@@ -1957,8 +2088,6 @@ def data_mesh_phase(dev, four: list, work: Path) -> dict:
         batch[name] = {"wall_s": time.time() - t0, "paths": paths,
                        "psnr_db": [r["psnr_db"] for r in res],
                        "n_bytes": [r["n_bytes"] for r in res]}
-    torch.backends.cudnn.deterministic = det[0]
-    torch.use_deterministic_algorithms(det[1], warn_only=det[2])
     for k in range(2):
         check(Path(batch["mesh"]["paths"][k]).read_bytes()
               == Path(batch["first 2 alone"]["paths"][k]).read_bytes(),
@@ -1975,15 +2104,13 @@ def data_mesh_phase(dev, four: list, work: Path) -> dict:
     for p in batch["mesh"]["paths"]:
         check_file_grids(Path(p), dev)
     print(f"[10d] encode_images_batched of 4 {four[0].img_size[0]}x{four[0].img_size[1]} "
-          f"images (deterministic cuDNN), image by image unsplit / data mesh (2, 1): psnr "
-          + ", ".join(f"{x:.3f} / {y:.3f}" for x, y in zip(batch["unsplit"]["psnr_db"],
-                                                          batch["mesh"]["psnr_db"]))
-          + " dB, bytes " + ", ".join(f"{x} / {y}" for x, y in zip(batch["unsplit"]["n_bytes"],
-                                                                 batch["mesh"]["n_bytes"]))
-          + f"; {batch['unsplit']['wall_s']:.1f} / {batch['mesh']['wall_s']:.1f} s; the first "
-          f"2 alone {batch['first 2 alone']['wall_s']:.1f} s, files identical to the mesh's "
-          f"first slice; the mesh's files decode in {d_launches} launches, every grid kernel "
-          f"== host C++", flush=True)
+          f"images over the data mesh (2, 1): psnr " + ", ".join(
+              f"{x:.3f}" for x in batch["mesh"]["psnr_db"]) + " dB, bytes " + ", ".join(
+              str(x) for x in batch["mesh"]["n_bytes"])
+          + f", {batch['mesh']['wall_s']:.1f} s; the first 2 alone "
+          f"{batch['first 2 alone']['wall_s']:.1f} s, files identical to the mesh's first "
+          f"slice; the mesh's files decode in {d_launches} launches, every grid kernel == "
+          f"host C++", flush=True)
     check(d_launches > 0, "10d: decode_images launched no wavefront_decode kernel")
     return {"window_worst": worst_d, "window_spread": spread, "window_steps": n_win,
             "step_ms_split": ms_d["split"], "step_ms_whole": ms_d["unsplit"],
@@ -1992,15 +2119,29 @@ def data_mesh_phase(dev, four: list, work: Path) -> dict:
             "decode_launches": d_launches}
 
 
+def encode_big(dev, src: Path, wd: Path, mesh=None) -> dict:
+    """Phase 10c's encode of `src` into the new workdir `wd`:
+    encode_one_frame at hop with main_only_preset (no warm-up, 60 steps),
+    `tpu`, no RDOQ, whole or over `mesh`."""
+    from coolchic_tpu_torch.train.video import encode_one_frame
+    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
+    from coolchic_tpu_torch.utils.parsecli import intra_operating_points
+
+    cs = CodingStructure(n_frames=1, intra_pos=[0])
+    wd.mkdir()
+    return encode_one_frame(cs.get_frame_from_coding_order(0), cs, str(src), str(wd),
+                            main_only_preset(), {"residue": intra_operating_points()["hop"]},
+                            verbose=False, rdoq=False, profile="tpu", device=dev, mesh=mesh)
+
+
 def multi_device_phase(dev, frames: list, work: Path) -> dict:
     """Phase 10: multi-device on one card, the mesh (cuda:0, cuda:0).
     (a) one 2048x3072 hop training step split over 2 space shards against
     the whole step; a 4-step window; ms per step, host ms and peak of both;
     (b) make_spatial_synthesis against the whole eval forward; (c)
     encode_one_frame whole and with the 2-shard mesh (60 steps, no warm-up,
-    `tpu`, no RDOQ, deterministic algorithms), the sharded file decoded
-    through the kernel; the CLI's
-    --spatial_shard refusal and `auto`; (d) make_batched_window and
+    `tpu`, no RDOQ), the sharded file decoded through the kernel; the
+    CLI's --spatial_shard refusal and `auto`; (d) make_batched_window and
     encode_images_batched of 4 512x768 frames over a (2, 1) data mesh; (e)
     the two-process run (gloo, both ranks on the card)."""
     import numpy as np
@@ -2028,8 +2169,6 @@ def multi_device_phase(dev, frames: list, work: Path) -> dict:
     from coolchic_tpu_torch.train.loss import dist_to_db
     from coolchic_tpu_torch.train.params import tree_flatten_with_path, tree_leaves, tree_map
     from coolchic_tpu_torch.train.train import PhaseFns, TorchNoise, init_opt_state
-    from coolchic_tpu_torch.train.video import encode_one_frame
-    from coolchic_tpu_torch.utils.codingstructure import CodingStructure
     from coolchic_tpu_torch.utils.parsecli import (
         coolchic_config_from_args,
         intra_operating_points,
@@ -2144,38 +2283,23 @@ def multi_device_phase(dev, frames: list, work: Path) -> dict:
     del like, fns, target, leaves, noise
     torch.cuda.empty_cache()
 
-    # --- (c) the encode, whole and on the 2-shard mesh
-    # cuDNN's default algorithms are not deterministic on the card, and a
-    # fresh trajectory amplifies that: two whole 60-step encodes of this
-    # frame differed by 0.23 dB and 2.5 % of the bytes (PERF.md). In
-    # deterministic mode each run repeats bit for bit, so what differs
-    # between the two encodes below is the split alone.
-    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    # --- (c) the encode, whole and on the 2-shard mesh (each run repeats
+    # bit for bit, cuDNN deterministic being the port's default: what
+    # differs between the two is the split alone)
     enc = {}
     for name, m in (("whole", None), ("2 shards", mesh)):
-        cs = CodingStructure(n_frames=1, intra_pos=[0])
-        wd = work / ("enc_whole" if m is None else "enc_sharded")
-        wd.mkdir()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
-        r = encode_one_frame(cs.get_frame_from_coding_order(0), cs, str(src), str(wd),
-                             main_only_preset(), {"residue": intra_operating_points()["hop"]},
-                             verbose=False, rdoq=False, profile="tpu", device=dev, mesh=m)
+        r = encode_big(dev, src, work / ("enc_whole" if m is None else "enc_sharded"), m)
         torch.cuda.synchronize()
         enc[name] = {"psnr_db": r["logs"].psnr_db, "n_bytes": r["n_bytes"],
                      "wall_s": time.time() - t0, "stages_s": r["monitor"].phase_time_sec,
                      "peak_bytes": torch.cuda.max_memory_allocated(dev),
                      "payload": r["payload"]}
-        print(f"[10c] encode_one_frame {name} (deterministic cuDNN): "
-              f"{enc[name]['psnr_db']:.3f} dB, "
+        print(f"[10c] encode_one_frame {name}: {enc[name]['psnr_db']:.3f} dB, "
               f"{enc[name]['n_bytes']} bytes, {enc[name]['wall_s']:.1f} s, peak "
               f"{enc[name]['peak_bytes'] / 2**30:.2f} GiB; stages " + ", ".join(
                   f"{k} {v:.2f}" for k, v in enc[name]["stages_s"].items()), flush=True)
-    torch.backends.cudnn.deterministic = det[0]
-    torch.use_deterministic_algorithms(det[1], warn_only=det[2])
     e_w, e_s = enc["whole"], enc["2 shards"]
     check(abs(e_w["psnr_db"] - e_s["psnr_db"]) < 0.1, f"10c psnr {e_w['psnr_db']} vs "
           f"{e_s['psnr_db']}")
@@ -2183,7 +2307,7 @@ def multi_device_phase(dev, frames: list, work: Path) -> dict:
           f"10c bytes {e_w['n_bytes']} vs {e_s['n_bytes']}")
     path = work / "sharded.cool"
     path.write_bytes(e_s.pop("payload"))
-    e_w.pop("payload")
+    (work / "whole.cool").write_bytes(e_w.pop("payload"))   # phase 11d's yardstick
     routes: list = []
     wfd.KERNEL.launches = 0
     t0 = time.time()
@@ -2232,7 +2356,218 @@ def multi_device_phase(dev, frames: list, work: Path) -> dict:
     return out
 
 
+def decode_back(tag: str, path: Path, dev, n_frames: int = 1) -> int:
+    """The first n_frames (in coding order) of `path` decoded by decode_video
+    on the card: its wavefront_decode launches, counted from 0; every grid
+    of every cool-chic, device path == host C++."""
+    import torch
+
+    from coolchic_tpu_torch.bitstream.decode import decode_video
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+
+    wfd.KERNEL.launches = 0
+    decoded = decode_video(str(path), max_decoding_order=n_frames - 1, device=dev)
+    torch.cuda.synchronize()
+    launches = wfd.KERNEL.launches
+    check(len(decoded) == n_frames, f"{tag}: decoded {sorted(decoded)}")
+    check(launches > 0, f"{tag}: decode_video launched no wavefront_decode kernel")
+    file_grids_on_host(tag, path, dev)
+    return launches
+
+
+def determinism_cost(dev, images, big, n_steps: int = 6) -> dict:
+    """Phase 11f: ms per training step (the debug preset's main phase,
+    make_batched_window, CUDA events over a window of n_steps) at n = 1 and
+    G = len(images) on `images`, and whole on `big`, with cuDNN
+    deterministic (the port's default) and not, in turns (det, free, free,
+    det). The two deterministic windows start from one state and must end
+    on the same parameters, bit for bit."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.models.frame import FrameConfig
+    from coolchic_tpu_torch.parallel.batch import (
+        batched_init,
+        make_batched_window,
+        make_mesh,
+        phase_key,
+    )
+    from coolchic_tpu_torch.train.params import tree_leaves
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args, \
+        intra_operating_points
+
+    phase = PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1).training_phases[0]
+    one = make_mesh(devices=[dev])
+    out = {}
+    for name, x in ((f"n = 1, {images.shape[-2]}x{images.shape[-1]}", images[:1]),
+                    (f"G = {len(images)}, {images.shape[-2]}x{images.shape[-1]}", images),
+                    (f"whole {big.shape[-2]}x{big.shape[-1]}", big)):
+        G = x.shape[0]
+        fcfg = FrameConfig(coolchic_cfg={"residue": coolchic_config_from_args(
+            intra_operating_points()["hop"], tuple(x.shape[-2:]))})
+        tg = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        params, opt = batched_init(fcfg, phase, G, seed=0, device=dev)
+        window = make_batched_window(fcfg, phase_key(phase), n_steps, one)
+
+        def run():
+            gens = [torch.Generator(device=dev).manual_seed(40 + i) for i in range(G)]
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            p = window(params, opt, gens, phase.lr, 0.3, 0.25, tg)[0]
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1) / n_steps, tree_leaves(p)
+
+        run()   # warm-up
+        ms = {True: [], False: []}
+        ends = []
+        try:
+            for det in (True, False, False, True):
+                torch.backends.cudnn.deterministic = det
+                t, leaves = run()
+                ms[det].append(t)
+                if det:
+                    ends.append(leaves)
+        finally:
+            torch.backends.cudnn.deterministic = True
+        rep = max(float((a - b).abs().max()) for a, b in zip(*ends))
+        out[name] = {"det_ms": ms[True], "free_ms": ms[False],
+                     "ratio": statistics.mean(ms[True]) / statistics.mean(ms[False]),
+                     "det_repeat_max_abs": rep}
+        print(f"[11f] {name}: ms a step (CUDA events, mean of a {n_steps}-step window) cuDNN "
+              f"deterministic {ms[True][0]:.2f} / {ms[True][1]:.2f}, not {ms[False][0]:.2f} / "
+              f"{ms[False][1]:.2f}: {out[name]['ratio']:.3f}x; the two deterministic windows "
+              f"differ by {rep:.2e}", flush=True)
+        check(rep == 0.0, f"11f {name}: two deterministic windows differ by {rep}")
+        del params, opt, tg, ends
+        torch.cuda.empty_cache()
+    return out
+
+
+def reproducibility_phase(dev, frames: list, p5: Path, p8: Path, p10: Path,
+                          work: Path) -> dict:
+    """Phase 11: the encoder repeats itself on the card at the port's
+    defaults. (a) phase 5's intra CLI run again, (b) phase 8's P2
+    again, (c) a mixed-λ and a uniform-λ batch of 2, (d) phase 10c's whole
+    2048x3072 encode again: byte-identical files, each decoded back through
+    the kernel; (e) every path that trains, at the defaults and under
+    torch.use_deterministic_algorithms(True), which must raise nothing and
+    end on the same parameters, bit for bit; (f) the cost of deterministic
+    cuDNN."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch import cc_encode
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+    from coolchic_tpu_torch.parallel.encode_batch import encode_images_batched
+    from coolchic_tpu_torch.train.presets import PresetDebug
+    from coolchic_tpu_torch.train.train import EncoderMonitor
+    from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args, \
+        intra_operating_points
+
+    work.mkdir()
+    out: dict = {}
+
+    # (a) the intra CLI again, as phase 5 ran it on its image
+    (work / "a").mkdir()
+    run = run_cli(dev, "11a", ["-i", str(p5 / "target.ppm"), *INTRA_ARGV], work / "a")
+    again, first = (work / "a" / "out.cool").read_bytes(), (p5 / "out.cool").read_bytes()
+    print(f"[11a] the intra CLI again on phase 5's image: {len(again)} bytes against phase "
+          f"5's {len(first)}, identical {again == first}", flush=True)
+    check(again == first, "11a: the intra CLI run again wrote another file than phase 5's")
+    out["a"] = {"bytes": len(again), "launches": run["launches"], "psnr_db": run["psnr_db"]}
+
+    # (b) phase 8's P2 again, from I0 as phase 8 left it
+    wb = work / "b"
+    wb.mkdir()
+    clip = next(p8.glob("clip_*.yuv"))
+    shutil.copy(next((p8 / "w").glob("0000-decoded_*.yuv")), wb)
+    shutil.copy(p8 / "i_only.cool", wb / "out.cool")
+    wfd.KERNEL.launches = 0
+    rc = cc_encode.main([*video_cli_argv(clip, wb / "out.cool", wb), "--coding_idx", "1"])
+    torch.cuda.synchronize()
+    b_launches = wfd.KERNEL.launches
+    check(rc == 0, f"11b: cc_encode P2 exited {rc}")
+    new, old = (wb / "out.cool").read_bytes(), (p8 / "ip_only.cool").read_bytes()
+    file_grids_on_host("[11b]", wb / "out.cool", dev)
+    print(f"[11b] phase 8's P2 encoded again (RDOQ on): I0 + P2 {len(new)} bytes against phase "
+          f"8's {len(old)}, identical {new == old}; its decode-back launched wavefront_decode "
+          f"{b_launches} times", flush=True)
+    check(new == old, "11b: P2 encoded again differs from phase 8's")
+    check(b_launches > 0, "11b: the decode-back launched no wavefront_decode kernel")
+    out["b"] = {"bytes": len(new), "launches": b_launches}
+
+    # (c) slot 0 of a mixed-λ batch of 2 against slot 0 of the uniform one,
+    # phase 10d's batch of the same 2 frames alone at the preset's λ
+    cfgs = {"residue": coolchic_config_from_args(intra_operating_points()["hop"],
+                                                 frames[0].img_size)}
+    preset = PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1)
+    paths = [work / f"c{k}.cool" for k in range(2)]
+    t0 = time.time()
+    res = encode_images_batched(frames[:2], cfgs, preset, [str(p) for p in paths], seed=0,
+                                verbose=False, rdoq=False, profile="tpu", lmbdas=[1e-3, 4e-3],
+                                monitor=EncoderMonitor(device=dev), device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    c_launches = [decode_back(f"[11c] slot {k}", p, dev) for k, p in enumerate(paths)]
+    mixed, uniform = paths[0].read_bytes(), (p10 / "first_2_alone0.cool").read_bytes()
+    print(f"[11c] encode_images_batched of 2 frames at lambda (1e-3, 4e-3): bytes "
+          f"{[r['n_bytes'] for r in res]}, {wall:.1f} s; slot 0 {len(mixed)} bytes against "
+          f"phase 10d's uniform batch's {len(uniform)}, identical {mixed == uniform}; "
+          f"decode-backs {c_launches} launches", flush=True)
+    check(mixed == uniform, "11c: slot 0 of the mixed-lambda batch differs from the uniform's")
+    out["c"] = {"wall_s": wall, "bytes": [r["n_bytes"] for r in res],
+                "psnr_db": [r["psnr_db"] for r in res], "launches": c_launches}
+
+    # (d) phase 10c's whole 2048x3072 encode again
+    t0 = time.time()
+    r = encode_big(dev, p10 / "big.ppm", work / "d")
+    torch.cuda.synchronize()
+    (work / "d.cool").write_bytes(r["payload"])
+    same_d = r["payload"] == (p10 / "whole.cool").read_bytes()
+    d_launches = decode_back("[11d]", work / "d.cool", dev)
+    print(f"[11d] phase 10c's whole 2048x3072 encode again: {r['n_bytes']} bytes, "
+          f"{r['logs'].psnr_db:.3f} dB, {time.time() - t0:.1f} s, identical to 10c's file "
+          f"{same_d}; decode-back {d_launches} launches", flush=True)
+    check(same_d, "11d: the whole 2048x3072 encode differs from 10c's")
+    out["d"] = {"bytes": r["n_bytes"], "psnr_db": r["logs"].psnr_db, "launches": d_launches}
+
+    # (e) every path that trains: twice at the defaults, once in strict mode
+    images = np.concatenate([np.asarray(f.data, np.float32) for f in frames])
+    big = np.ascontiguousarray(np.tile(images[:1], (1, 1, 4, 4)))
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+
+    def diff(x, y):
+        return max(float((a - b).abs().max()) for a, b in zip(x, y))
+
+    out["e"] = {}
+    for name, fn in training_paths(dev, images, big).items():
+        first = fn()
+        torch.use_deterministic_algorithms(True)
+        try:
+            second = fn()
+        except RuntimeError as e:
+            fail(f"11e {name} raised under use_deterministic_algorithms(True): {e}")
+        finally:
+            torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        out["e"][name] = {"strict_max_abs": diff(first, second)}
+        print(f"[11e] {name}: strict mode (use_deterministic_algorithms(True), "
+              f"CUBLAS_WORKSPACE_CONFIG {os.environ.get('CUBLAS_WORKSPACE_CONFIG')}) raised "
+              f"nothing; against a run at the defaults {diff(first, second):.2e}", flush=True)
+        check(diff(first, second) == 0.0, f"11e {name}: the two runs differ")
+        del first, second
+    torch.cuda.empty_cache()
+
+    out["f"] = determinism_cost(dev, images, big)
+    return out
+
+
 def main() -> int:
+    # phase 11e's strict mode (torch.use_deterministic_algorithms) needs
+    # cuBLAS's fixed workspace, set before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2355,6 +2690,11 @@ def main() -> int:
         t0 = time.time()
         plain = wfd.decode_grids(jobs, h_i, w_i, ctx_idx, n_ifce, device=dev, plain=True)
         t_p = time.time() - t0
+        if level == 0:
+            # the plain version's time of one level-0 grid for phase 4: it
+            # takes tens of seconds (thousands of eager launches) and is no
+            # yardstick, so it is not run again there
+            plain1_ms = 1e3 * t_p
         for g, (img, job) in enumerate(zip(group, jobs)):
             decs = [rc.RangeDecoder(ws.tobytes()) for ws in job["words"]]
             host = rc.code_grid_streams(decs, False, h_i, w_i, cfg.spatial_context_arm,
@@ -2466,8 +2806,6 @@ def main() -> int:
     one = [tensors[0][:, :1].contiguous(), *(t[:1] for t in tensors[1:5]),
            tensors[5][:, :, :1].contiguous()]
     kern1_ms = cuda_ms(lambda: wfd.wavefront_decode(*one, **kw))
-    plain1_ms = cuda_ms(lambda: wfd.wavefront_decode_plain(*one, **kw), n=N_TIMED_PLAIN,
-                        warmup=0)
     bound1, by1, work1 = bound_of(one, kw)
     job0 = host_job(imgs[0], 0)
     host_times = []
@@ -2478,8 +2816,8 @@ def main() -> int:
                              job0["ifce"], job0["arm8"], ctx_idx, model=1)
         host_times.append(1e3 * (time.perf_counter() - t0))
     host_ms = statistics.median(host_times)
-    print(f"[4] level 0 G=1: kernel {kern1_ms:.3f} ms, plain {plain1_ms:.1f} ms (median of "
-          f"{N_TIMED_PLAIN}), bound {bound1:.4f} ms ({by1}), host C++ {host_ms:.1f} ms (host "
+    print(f"[4] level 0 G=1: kernel {kern1_ms:.3f} ms, plain {plain1_ms:.1f} ms (phase 2's "
+          f"call, host clock), bound {bound1:.4f} ms ({by1}), host C++ {host_ms:.1f} ms (host "
           f"clock); medians of {N_TIMED} but the plain version's", flush=True)
 
     # level 0 at G = 1, 8, 32: the time stays flat while G <= 132 SMs
@@ -2541,6 +2879,7 @@ def main() -> int:
         wave = wave_phase(dev, frames[0], wd / "p8", wd / "p9b",
                           video["steps"]["B"]["step_ms"])
         multi = multi_device_phase(dev, frames, wd / "p10")
+        repro = reproducibility_phase(dev, frames, wd / "p5", wd / "p8", wd / "p10", wd / "p11")
 
     kernels = [{
         "name": "wavefront_decode",
@@ -2559,7 +2898,15 @@ def main() -> int:
                              "decode_video of the 2-shard 2048x3072 encode (10c)":
                                  multi["c"]["decode_launches"],
                              "decode_images of 4 data-mesh encodes (10d)":
-                                 multi["d"]["decode_launches"]},
+                                 multi["d"]["decode_launches"],
+                             "cc_encode decode-back of the intra CLI run again (11a)":
+                                 repro["a"]["launches"],
+                             "cc_encode decode-back of I0 + P2 encoded again (11b)":
+                                 repro["b"]["launches"],
+                             "decode_video of the 2 mixed-lambda files of 11c":
+                                 sum(repro["c"]["launches"]),
+                             "decode_video of the repeated 2048x3072 encode (11d)":
+                                 repro["d"]["launches"]},
         "max_abs_err": max(max_abs_err, *(g["max_abs_err"]
                                           for g in video["motion_grids"].values())),
         "ms": kern1_ms,
@@ -2586,6 +2933,7 @@ def main() -> int:
     print(json.dumps({"batch_encode_512x768_hop": batch_enc, "card": card}), flush=True)
     print(json.dumps({"wave_512x768": wave, "card": card}), flush=True)
     print(json.dumps({"multi_device": multi, "card": card}), flush=True)
+    print(json.dumps({"reproducibility": repro, "card": card}), flush=True)
     tmp.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())

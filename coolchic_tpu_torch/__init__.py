@@ -17,3 +17,10 @@ __version__ = "0.1.0"
 # cuDNN would otherwise run the synthesis convs in TF32 on the card.
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+# An encode is a function of its input, config and seed, as the JAX
+# package's is: cuDNN picks only deterministic algorithms (its default
+# backward convs accumulate with atomics, and training amplifies the
+# rounding into another file). torch.use_deterministic_algorithms stays
+# the caller's process-wide switch.
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False

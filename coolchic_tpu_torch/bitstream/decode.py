@@ -183,11 +183,12 @@ def decode_images(bitstream_paths: list[str],
 
 def decode_video(bitstream_path: str, decoded_path: Optional[str] = None,
                  max_decoding_order: int = -1, device: str | torch.device = "cuda",
-                 routes: Optional[list] = None) -> dict[str, FrameData]:
+                 routes: Optional[list] = None, verbosity: int = 0) -> dict[str, FrameData]:
     """Decode a .cool file of I, P and B frames in coding order (either
     profile, sniffed from the container magic); `decoded_path` gets every
     frame in display order (a multi-frame .yuv). Returns {display index:
-    frame}; `routes` as decode_frame's."""
+    frame}; `routes` as decode_frame's. `verbosity` is taken and unused,
+    as in coolchic_tpu/bitstream/decode.py:decode_video."""
     device = resolve_device(device)
     with open(bitstream_path, "rb") as f:
         bitstream = f.read()

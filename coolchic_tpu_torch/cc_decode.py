@@ -18,13 +18,15 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-i", "--input", required=True, help=".cool bitstream")
     p.add_argument("-o", "--output", required=True, help="decoded png / ppm / yuv")
+    p.add_argument("--verbosity", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an error")
     args = p.parse_args(argv)
 
     from coolchic_tpu_torch.bitstream.decode import decode_video
 
-    decode_video(args.input, decoded_path=args.output, device=args.device)
+    decode_video(args.input, decoded_path=args.output, device=args.device,
+                 verbosity=args.verbosity)
     print(f"decoded {args.input} -> {args.output}")
     return 0
 

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from coolchic_tpu_torch.core.arch import CoolChicConfig
-from coolchic_tpu_torch.ops.convs import conv2d_replicate
+from coolchic_tpu_torch.ops.convs import conv2d_replicate, replicate_pad
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -80,7 +80,7 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                              groups=G)
     else:
         if p > 0:
-            x = F.pad(x, (p, p, p * edges[0], p * edges[1]), mode="replicate")
+            x = replicate_pad(x, (p, p, p * edges[0], p * edges[1]))
         y = F.conv2d(x, w.reshape(-1, *w.shape[2:]), b.reshape(-1), groups=G)
     return y.reshape(G, -1, *y.shape[-2:])
 

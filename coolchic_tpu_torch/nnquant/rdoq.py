@@ -43,7 +43,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from coolchic_tpu_torch.bitstream.nncodec import flatten_module_params, unflatten_module_params
 from coolchic_tpu_torch.core.arch import CoolChicConfig
@@ -56,6 +55,7 @@ from coolchic_tpu_torch.models.upsampling import fixed_upsampling, upsampling_ap
 from coolchic_tpu_torch.models.warp import warp_fn
 from coolchic_tpu_torch.nnquant.quantize import best_expgol
 from coolchic_tpu_torch.ops.context import spatial_context
+from coolchic_tpu_torch.ops.convs import replicate_pad
 from coolchic_tpu_torch.ops.resize import interpolate
 
 N_SHIFTS = 15
@@ -84,13 +84,14 @@ def _arm_shifts(n_lat: int) -> tuple:
 
 
 def _probe_budget_bytes(device: torch.device) -> int:
-    """Activation bytes one probe may hold: a quarter of the card's free
-    memory (so a probe of a few hundred lanes runs in a few slabs or tiles
-    on an 80 GB card, where the JAX package sized them for a 16 GiB v5e),
-    1 GiB on the CPU."""
+    """Activation bytes one probe may hold: a quarter of the card's memory
+    (so a probe of a few hundred lanes runs in a few slabs or tiles on an
+    80 GB card, where the JAX package sized them for a 16 GiB v5e), 1 GiB
+    on the CPU. The card's total, not what is free at the moment: the
+    slabs and tiles set the order of the sums, so an encode repeats only
+    if they do."""
     if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return free // 4
+        return torch.cuda.get_device_properties(device).total_memory // 4
     return 2**30
 
 
@@ -317,7 +318,7 @@ def _make_syn_scorer(cfg: CoolChicConfig, wb: str, lmbda: float, q: float, cnt: 
         n_ch = cfg.synthesis_out_ft if frame_type == "I" else 3
         npx = float(row_w_np.sum() * n_ch * w)
     row_w = torch.as_tensor(row_w_np, device=syn_in.device)
-    syn_pad = F.pad(syn_in, (0, 0, halo, halo), mode="replicate")
+    syn_pad = replicate_pad(syn_in, (0, 0, halo, halo))
     specs = cfg.parsed_synthesis
 
     def score(flat_w, flat_b, idxs, vals):

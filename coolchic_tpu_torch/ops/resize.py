@@ -70,6 +70,23 @@ def _nearest_index_np(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
+@lru_cache(maxsize=None)
+def _nearest_repeat(in_size: int, out_size: int) -> int:
+    """k when nearest resizing repeats every sample k times, else 0."""
+    k = out_size // in_size
+    if k and np.array_equal(_nearest_index_np(in_size, out_size), np.arange(out_size) // k):
+        return k
+    return 0
+
+
+@lru_cache(maxsize=None)
+def _nearest_matrix_np(in_size: int, out_size: int) -> np.ndarray:
+    """The [out_size, in_size] 0/1 selection matrix of nearest resizing."""
+    w = np.zeros((out_size, in_size), dtype=np.float32)
+    w[np.arange(out_size), _nearest_index_np(in_size, out_size)] = 1.0
+    return w
+
+
 @lru_cache(maxsize=256)
 def _on(fn, in_size: int, out_size: int, device: torch.device, *mode) -> torch.Tensor:
     """fn's table for (in_size, out_size[, mode]) on `device`, made once: a
@@ -87,16 +104,20 @@ def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str) -> torch.Tens
         # every mode interpolates: identical size is the identity
         return x
     if mode == "nearest":
-        if (h_out, w_out) == (2 * h_in, 2 * w_in):
+        # No advanced indexing: its backward accumulates into repeated
+        # indices (index_put), which torch lists as nondeterministic.
+        # Repeats are an expand, whose backward is a sum; any other ratio
+        # is a product with 0/1 matrices, exact in f32.
+        ky, kx = _nearest_repeat(h_in, h_out), _nearest_repeat(w_in, w_out)
+        if ky and kx:
             lead = x.shape[:-2]
-            y = x[..., :, None, :, None].expand(*lead, h_in, 2, w_in, 2)
+            y = x[..., :, None, :, None].expand(*lead, h_in, ky, w_in, kx)
             return y.reshape(*lead, h_out, w_out)
-        iy = _on(_nearest_index_np, h_in, h_out, x.device)
-        ix = _on(_nearest_index_np, w_in, w_out, x.device)
-        return x[..., iy, :][..., :, ix]
-
-    wy = _on(_resize_matrix_np, h_in, h_out, x.device, mode).to(x.dtype)
-    wx = _on(_resize_matrix_np, w_in, w_out, x.device, mode).to(x.dtype)
+        wy = _on(_nearest_matrix_np, h_in, h_out, x.device).to(x.dtype)
+        wx = _on(_nearest_matrix_np, w_in, w_out, x.device).to(x.dtype)
+    else:
+        wy = _on(_resize_matrix_np, h_in, h_out, x.device, mode).to(x.dtype)
+        wx = _on(_resize_matrix_np, w_in, w_out, x.device, mode).to(x.dtype)
     # [..., H_in, W_in] -> [..., H_out, W_in] -> [..., H_out, W_out]
     y = torch.einsum("oh,...hw->...ow", wy, x)
     return torch.einsum("ow,...hw->...ho", wx, y)

@@ -22,6 +22,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--n_frames", type=int, required=True)
     p.add_argument("--intra_pos", default="0")
     p.add_argument("--p_pos", default="")
+    p.add_argument("--raw_coding_struct", action="store_true",
+                   help="print the raw TSV (coding_order display_order type refs depth); "
+                        "it is printed either way")
     p.add_argument("--slurm_template", default="",
                    help="emit (on stderr) an sbatch script calling this template per "
                         "frame with afterok dependencies following the reference DAG")

@@ -12,8 +12,9 @@ Google "codex" Wasserstein-distortion formulation):
 
 The VGG16 weights are the deterministic He-initialized ones of the JAX
 package (numpy rng, seed 20260817): nothing is ever fetched. Pretrained
-weights in torchvision layout (keys features.{i}.weight / .bias) can be
-given as an .npz path to load_vgg_weights / make_wasserstein_fn.
+weights in torchvision layout (keys features.{i}.weight / .bias) are read
+from the .npz that COOLCHIC_VGG16_NPZ names, as in the JAX package, or
+from an .npz path given to load_vgg_weights / make_wasserstein_fn.
 
 Batched: images carry a leading axis of G, features are [G, C, h, w] (the
 JAX package's [C, 1, h, w] per image) and the distortion is one value per
@@ -24,6 +25,7 @@ Reference parity: coolchic_tpu/train/wasserstein.py.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from typing import Optional
 
@@ -72,11 +74,20 @@ def _vgg_weights_np(npz_path: Optional[str]) -> dict:
 
 
 @lru_cache(maxsize=8)
-def load_vgg_weights(device: torch.device, npz_path: Optional[str] = None) -> dict:
-    """The VGG16 feature weights on `device`: He-init by default, or the
-    torchvision-layout .npz at `npz_path`."""
+def _vgg_weights_on(device: torch.device, npz_path: Optional[str]) -> dict:
     return {k: torch.as_tensor(v, device=device)
             for k, v in _vgg_weights_np(npz_path).items()}
+
+
+def load_vgg_weights(device: torch.device, npz_path: Optional[str] = None) -> dict:
+    """The VGG16 feature weights on `device`: the torchvision-layout .npz at
+    `npz_path`, else the one COOLCHIC_VGG16_NPZ names if it names a file
+    (as coolchic_tpu/train/wasserstein.py:_load_vgg_weights reads it), else
+    He-init."""
+    env = os.environ.get("COOLCHIC_VGG16_NPZ", "")
+    if npz_path is None and env and os.path.exists(env):
+        npz_path = env
+    return _vgg_weights_on(device, npz_path)
 
 
 def vgg16_features(x: torch.Tensor, weights: dict | None = None) -> list[torch.Tensor]:
