@@ -28,8 +28,7 @@ Phases, each fatal on failure:
      the team kernel at T = 4 and 8 and the first design (one thread per
      stream, csrc/wavefront_decode_pr1.cu), each in full (bit-exact against
      the main kernel) and with each part stubbed (-DWFD_ABLATE), in us per
-     wavefront; the batch decode split into IFCE + shear, kernels and the
-     float tail;
+     wavefront;
   5. the intra encode: phase 3's first frame, written as a .ppm, encoded
      by the port's CLI (coolchic_tpu_torch.cc_encode.main: hop, debug
      recipe, `tpu` profile, --no_rdoq, --device cuda; exit 0 carries its
@@ -260,56 +259,6 @@ def kernel_bound(h: int, w: int, G: int, R: int, ifce_rows: int, dim: int,
     by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops,
                                            "serial_wavefronts": D}
-
-
-def split_batch_ms(batch) -> dict:
-    """DeviceBatch.run's device time by part: the same calls as run(), with
-    CUDA events between them; median over N_TIMED runs after a warm-up, ms
-    summed over the levels (IFCE context + shear, kernel) and the float tail
-    (upsampling, synthesis, resize)."""
-    import torch
-
-    from coolchic_tpu_torch.models.synthesis import synthesis_batched
-    from coolchic_tpu_torch.models.upsampling import upsampling_batched
-    from coolchic_tpu_torch.ops import wavefront_decode as wfd
-    from coolchic_tpu_torch.ops.resize import interpolate
-
-    cfg = batch.cfg
-    samples: dict[str, list] = {}
-    for it in range(N_TIMED + 1):
-        events, names = [torch.cuda.Event(enable_timing=True)], []
-        events[0].record()
-
-        def mark(name):
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-            names.append(name)
-
-        decoded = dict(batch.host_grids)
-        with torch.no_grad():
-            for li, level in enumerate(batch.device_levels):
-                tensors, kw = batch.kernel_inputs(li, decoded)
-                check(wfd.grid_batch_limit(kw["h"], kw["w"], tensors[5].shape[1],
-                                           tensors[0].shape[0], batch.G, batch.device)
-                      == batch.G, "the batch does not fit one launch per level")
-                mark("ifce_shear")
-                decoded[level] = wfd.wavefront_decode(*tensors, **kw)
-                mark("kernel")
-            syn_grids = [decoded[l].float() for l in range(cfg.n_latent_grids)
-                         if not cfg.flag_is_hyperlatent[l]]
-            dense = upsampling_batched([m[0] for m in batch.modules], syn_grids)
-            syn_out = synthesis_batched([m[1] for m in batch.modules], dense)
-            interpolate(syn_out, cfg.img_size, cfg.final_upsampling_type)
-            mark("float_tail")
-        torch.cuda.synchronize()
-        if it == 0:
-            continue
-        total: dict[str, float] = {}
-        for name, a, b in zip(names, events[:-1], events[1:]):
-            total[name] = total.get(name, 0.0) + a.elapsed_time(b)
-        for name, v in total.items():
-            samples.setdefault(name, []).append(v)
-    return {name: statistics.median(v) for name, v in samples.items()}
 
 
 def check_file_grids(out: Path, dev) -> list:
@@ -2792,6 +2741,9 @@ def main() -> int:
 
     per_level = []
     for level, (tensors, kw) in level_inputs.items():
+        check(wfd.grid_batch_limit(kw["h"], kw["w"], tensors[5].shape[1], tensors[0].shape[0],
+                                   batch.G, batch.device) == batch.G,
+              "the batch does not fit one launch per level")
         ms = cuda_ms(lambda: wfd.wavefront_decode(*tensors, **kw))
         bound, by, work = bound_of(tensors, kw)
         per_level.append({"level": level, "shape": [kw["h"], kw["w"]], "G": batch.G,
@@ -2861,11 +2813,6 @@ def main() -> int:
         ablation[name] = row
     print(json.dumps({"ablation_us_per_wavefront": ablation, "level": 0, "G": batch.G,
                       "wavefronts": D0, "card": card}), flush=True)
-
-    split = split_batch_ms(batch)
-    print(f"[4] batch decode split (CUDA events, median of {N_TIMED}): "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
-          + f"; total {sum(split.values()):.3f} ms", flush=True)
 
     # ------------------------------------------ 5-7. the intra encoder
     with tempfile.TemporaryDirectory() as wd:

@@ -27,6 +27,7 @@ from coolchic_tpu_torch.core.device import resolve_device
 from coolchic_tpu_torch.io.framedata import FrameData
 from coolchic_tpu_torch.io.yuv import convert_420_to_444, convert_444_to_420, yuv_dict_clamp
 from coolchic_tpu_torch.models.warp import apply_global_translation, warp_fn
+from coolchic_tpu_torch.utils import trace
 from coolchic_tpu_torch.utils.codingstructure import CodingStructure
 
 
@@ -87,6 +88,7 @@ def decode_frame(bitstream: bytes, reference_frames: Optional[list[FrameData]] =
                          frame_header.frame_data_type), bitstream
 
 
+@trace.spanned("decode.finish")
 def _finish_frame(decoded: np.ndarray, bitdepth: int,
                   frame_data_type: str) -> FrameData:
     """Bitdepth rounding + 444->420 tail shared by single and batched decode
@@ -136,6 +138,7 @@ def _decode_items_batched(items: list, device: str | torch.device = "cuda"
     return outputs, routes
 
 
+@trace.spanned("decode.call", root=True)
 def decode_images(bitstream_paths: list[str],
                   decoded_paths: Optional[list[str]] = None,
                   device: str | torch.device = "cuda",
@@ -146,26 +149,27 @@ def decode_images(bitstream_paths: list[str],
     return_routes (see _decode_items_batched)."""
     device = resolve_device(device)
     items, metas = [], []
-    for path in bitstream_paths:
-        with open(path, "rb") as f:
-            bitstream = f.read()
-        if not bitstream.startswith(TPU_PROFILE_MAGIC):
-            raise ValueError(f"{path}: not a tpu-profile bitstream; batched "
-                             "decode needs --profile tpu encodes")
-        bitstream = bitstream[len(TPU_PROFILE_MAGIC):]
-        video_header, bitstream = VideoHeader.read(bitstream)
-        if video_header.n_frames != 1:
-            raise ValueError(f"{path}: {video_header.n_frames} frames; "
-                             "batched decode covers single-frame bitstreams")
-        frame_header, bitstream = FrameHeader.read(bitstream)
-        if frame_header.frame_type != "I":
-            raise ValueError(f"{path}: single-frame bitstream is not intra")
-        cc_header, bitstream = CoolChicHeader.read(bitstream)
-        bytes_nn = bitstream[:cc_header.nn_n_bytes]
-        bitstream = bitstream[cc_header.nn_n_bytes:]
-        bytes_latent = bitstream[:cc_header.n_bytes_latent]
-        items.append((cc_header, bytes_nn, bytes_latent))
-        metas.append(frame_header)
+    with trace.span("decode.read"):
+        for path in bitstream_paths:
+            with open(path, "rb") as f:
+                bitstream = f.read()
+            if not bitstream.startswith(TPU_PROFILE_MAGIC):
+                raise ValueError(f"{path}: not a tpu-profile bitstream; batched "
+                                 "decode needs --profile tpu encodes")
+            bitstream = bitstream[len(TPU_PROFILE_MAGIC):]
+            video_header, bitstream = VideoHeader.read(bitstream)
+            if video_header.n_frames != 1:
+                raise ValueError(f"{path}: {video_header.n_frames} frames; "
+                                 "batched decode covers single-frame bitstreams")
+            frame_header, bitstream = FrameHeader.read(bitstream)
+            if frame_header.frame_type != "I":
+                raise ValueError(f"{path}: single-frame bitstream is not intra")
+            cc_header, bitstream = CoolChicHeader.read(bitstream)
+            bytes_nn = bitstream[:cc_header.nn_n_bytes]
+            bitstream = bitstream[cc_header.nn_n_bytes:]
+            bytes_latent = bitstream[:cc_header.n_bytes_latent]
+            items.append((cc_header, bytes_nn, bytes_latent))
+            metas.append(frame_header)
 
     outputs, routes = _decode_items_batched(items, device)
 

@@ -45,6 +45,7 @@ from coolchic_tpu_torch.models.synthesis import synthesis_batched
 from coolchic_tpu_torch.models.upsampling import upsampling_batched
 from coolchic_tpu_torch.ops import wavefront_decode as wfd
 from coolchic_tpu_torch.ops.resize import interpolate
+from coolchic_tpu_torch.utils import trace
 
 LANES = 128
 
@@ -186,68 +187,71 @@ class DeviceBatch:
         if set(self.device_levels) != set(range(len(self.device_levels))):
             raise ValueError("non-contiguous device levels; host path")
 
-        for s in states:  # host-decode the grids below the kernel threshold
-            s["decoded"] = {}
-            for level in range(cfg.n_latent_grids - 1, -1, -1):
-                if level not in self.device_levels:
-                    s["decoded"][level] = decode_tpu_level_host(
-                        s["nn"], cfg, s["header"], s["arm"], level,
-                        s["blocks"][level]["words"],
-                        [s["decoded"][l] for l in range(level + 1, cfg.n_latent_grids)])
+        with trace.span("decode.prepare.host_levels"):
+            for s in states:  # host-decode the grids below the kernel threshold
+                s["decoded"] = {}
+                for level in range(cfg.n_latent_grids - 1, -1, -1):
+                    if level not in self.device_levels:
+                        s["decoded"][level] = decode_tpu_level_host(
+                            s["nn"], cfg, s["header"], s["arm"], level,
+                            s["blocks"][level]["words"],
+                            [s["decoded"][l] for l in range(level + 1, cfg.n_latent_grids)])
 
         def dev(a) -> torch.Tensor:
             return torch.as_tensor(a, device=device)
 
-        # stream words per device level: [R, G, 128] (u32 bits in int32)
-        self.words = []
-        for level in self.device_levels:
-            R = wfd.words_bucket(max(2, max(len(ws) for s in states
-                                            for ws in s["blocks"][level]["words"])))
-            arr = np.zeros((R, G, LANES), np.uint32)
-            for g, s in enumerate(states):
-                for j, ws in enumerate(s["blocks"][level]["words"]):
-                    arr[: len(ws), g, j] = ws
-            self.words.append(dev(arr.view(np.int32)))
+        with trace.span("decode.prepare.upload"):
+            # stream words per device level: [R, G, 128] (u32 bits in int32)
+            self.words = []
+            for level in self.device_levels:
+                R = wfd.words_bucket(max(2, max(len(ws) for s in states
+                                                for ws in s["blocks"][level]["words"])))
+                arr = np.zeros((R, G, LANES), np.uint32)
+                for g, s in enumerate(states):
+                    for j, ws in enumerate(s["blocks"][level]["words"]):
+                        arr[: len(ws), g, j] = ws
+                self.words.append(dev(arr.view(np.int32)))
 
-        flat = [wfd.arm8_flat(s["arm"]) for s in states]
-        self.wtr, self.btr, self.stw, self.stb = (
-            dev(np.stack([f[k] for f in flat])) for k in range(4))
-        self.dims = tuple((int(m.shape[0]), int(m.shape[1]))
-                          for m in st0["arm"]["trunk_weights"])
-        self.taps = wfd._tap_list(non_zero_pixel_ctx_index(cfg.spatial_context_arm))
+            flat = [wfd.arm8_flat(s["arm"]) for s in states]
+            self.wtr, self.btr, self.stw, self.stb = (
+                dev(np.stack([f[k] for f in flat])) for k in range(4))
+            self.dims = tuple((int(m.shape[0]), int(m.shape[1]))
+                              for m in st0["arm"]["trunk_weights"])
+            self.taps = wfd._tap_list(non_zero_pixel_ctx_index(cfg.spatial_context_arm))
 
-        # Per-device-level IFCE fixed-point params stacked over the batch, and
-        # the int16 packing certificate |ctx| <= (|b| + 64*2^8*sum|W|) >> 8
-        # (+1 for the floor of the arithmetic shift), which must hold for
-        # every image of the batch to pack two features per int32 word.
-        self.ifce_ws, self.ifce_bs, packed = {}, {}, []
-        for level in self.device_levels:
-            if self.n_ifce == 0:
-                packed.append(False)
-                continue
-            if cfg.input_features_ifce[level] == 0:
-                packed.append(True)  # a zero context packs trivially
-                continue
-            per_w, per_b, fits16 = [], [], True
-            for s in states:
-                fp = _ifce_fixed_params(s["nn"], cfg, s["header"], level, model=1)
-                per_w.append(np.asarray(fp["trunk_weights"][0], np.int32))
-                per_b.append(np.asarray(fp["trunk_biases"][0], np.int32))
-                bound = (np.abs(per_b[-1].astype(np.float64))
-                         + 64.0 * 256.0 * np.abs(per_w[-1].astype(np.float64)).sum(0)
-                         ) / 256.0 + 1.0
-                fits16 = fits16 and bool(bound.max() < 32768.0)
-            self.ifce_ws[level] = dev(np.stack(per_w))
-            self.ifce_bs[level] = dev(np.stack(per_b))
-            packed.append(fits16)
-        self.packed_per_level = tuple(packed)
+            # Per-device-level IFCE fixed-point params stacked over the batch, and
+            # the int16 packing certificate |ctx| <= (|b| + 64*2^8*sum|W|) >> 8
+            # (+1 for the floor of the arithmetic shift), which must hold for
+            # every image of the batch to pack two features per int32 word.
+            self.ifce_ws, self.ifce_bs, packed = {}, {}, []
+            for level in self.device_levels:
+                if self.n_ifce == 0:
+                    packed.append(False)
+                    continue
+                if cfg.input_features_ifce[level] == 0:
+                    packed.append(True)  # a zero context packs trivially
+                    continue
+                per_w, per_b, fits16 = [], [], True
+                for s in states:
+                    fp = _ifce_fixed_params(s["nn"], cfg, s["header"], level, model=1)
+                    per_w.append(np.asarray(fp["trunk_weights"][0], np.int32))
+                    per_b.append(np.asarray(fp["trunk_biases"][0], np.int32))
+                    bound = (np.abs(per_b[-1].astype(np.float64))
+                             + 64.0 * 256.0 * np.abs(per_w[-1].astype(np.float64)).sum(0)
+                             ) / 256.0 + 1.0
+                    fits16 = fits16 and bool(bound.max() < 32768.0)
+                self.ifce_ws[level] = dev(np.stack(per_w))
+                self.ifce_bs[level] = dev(np.stack(per_b))
+                packed.append(fits16)
+            self.packed_per_level = tuple(packed)
+            self.host_grids = {
+                level: dev(np.stack([np.asarray(s["decoded"][level], np.int32)
+                                     for s in states]))
+                for level in range(cfg.n_latent_grids) if level not in self.device_levels}
 
         # float tail: one (Upsampling, Synthesis) per image
-        self.modules = [params_from_jax(s["nn"], cfg, device) for s in states]
-        self.host_grids = {
-            level: dev(np.stack([np.asarray(s["decoded"][level], np.int32)
-                                 for s in states]))
-            for level in range(cfg.n_latent_grids) if level not in self.device_levels}
+        with trace.span("decode.prepare.modules"):
+            self.modules = [params_from_jax(s["nn"], cfg, device) for s in states]
 
     def kernel_inputs(self, li: int, decoded: dict) -> tuple[list, dict]:
         """Inputs of the wavefront decode of device level self.device_levels[li]
@@ -259,19 +263,21 @@ class DeviceBatch:
         h_i, w_i = cfg.size_per_latent[level]
         packed = self.packed_per_level[li]
         rows = max((self.n_ifce + 1) // 2 if packed else self.n_ifce, 1)
-        if self.n_ifce > 0 and cfg.input_features_ifce[level] > 0:
-            finer = [decoded[l] for l in range(level + 1, cfg.n_latent_grids)]
-            ctx, hc, wc = _ifce_ctx_device(finer, cfg, self.ifce_ws[level],
-                                           self.ifce_bs[level])
-            sheared = _shear_ifce(ctx, h_i, w_i, hc, wc, packed)
-        else:
-            sheared = torch.zeros((wfd.n_wavefronts(h_i, w_i), rows, G, LANES),
-                                  dtype=torch.int32, device=self.device)
+        with trace.span("decode.ifce"):
+            if self.n_ifce > 0 and cfg.input_features_ifce[level] > 0:
+                finer = [decoded[l] for l in range(level + 1, cfg.n_latent_grids)]
+                ctx, hc, wc = _ifce_ctx_device(finer, cfg, self.ifce_ws[level],
+                                               self.ifce_bs[level])
+                sheared = _shear_ifce(ctx, h_i, w_i, hc, wc, packed)
+            else:
+                sheared = torch.zeros((wfd.n_wavefronts(h_i, w_i), rows, G, LANES),
+                                      dtype=torch.int32, device=self.device)
         tensors = [self.words[li], self.wtr, self.btr, self.stw, self.stb, sheared]
         kw = dict(h=h_i, w=w_i, taps=self.taps, dims=self.dims, n_ifce=self.n_ifce,
                   ifce_packed=packed)
         return tensors, kw
 
+    @trace.spanned("decode.device")
     def run(self) -> tuple[torch.Tensor, list[torch.Tensor]]:
         """All device levels and the float tail. Returns (raw [G, C, H, W]
         f32, grids: one [G, h, w] int32 tensor per level), on the device."""
@@ -282,31 +288,37 @@ class DeviceBatch:
                 (words, wtr, btr, stw, stb, ifce), kw = self.kernel_inputs(li, decoded)
                 limit = wfd.grid_batch_limit(kw["h"], kw["w"], ifce.shape[1],
                                              words.shape[0], G, self.device)
-                outs = []
-                for g0 in range(0, G, limit):
-                    g1 = min(G, g0 + limit)
-                    outs.append(wfd.wavefront_decode(
-                        words[:, g0:g1].contiguous(), wtr[g0:g1], btr[g0:g1],
-                        stw[g0:g1], stb[g0:g1], ifce[:, :, g0:g1].contiguous(), **kw))
-                decoded[level] = torch.cat(outs) if len(outs) > 1 else outs[0]
+                with trace.span("decode.kernel"):
+                    outs = []
+                    for g0 in range(0, G, limit):
+                        g1 = min(G, g0 + limit)
+                        outs.append(wfd.wavefront_decode(
+                            words[:, g0:g1].contiguous(), wtr[g0:g1], btr[g0:g1],
+                            stw[g0:g1], stb[g0:g1], ifce[:, :, g0:g1].contiguous(), **kw))
+                    decoded[level] = torch.cat(outs) if len(outs) > 1 else outs[0]
 
-            syn_grids = [decoded[l].float() for l in range(cfg.n_latent_grids)
-                         if not cfg.flag_is_hyperlatent[l]]
-            dense = upsampling_batched([m[0] for m in self.modules], syn_grids)
-            syn_out = synthesis_batched([m[1] for m in self.modules], dense)
-            raw = interpolate(syn_out, cfg.img_size, cfg.final_upsampling_type)
+            with trace.span("decode.float_tail"):
+                syn_grids = [decoded[l].float() for l in range(cfg.n_latent_grids)
+                             if not cfg.flag_is_hyperlatent[l]]
+                dense = upsampling_batched([m[0] for m in self.modules], syn_grids)
+                syn_out = synthesis_batched([m[1] for m in self.modules], dense)
+                raw = interpolate(syn_out, cfg.img_size, cfg.final_upsampling_type)
         return raw, [decoded[l] for l in range(cfg.n_latent_grids)]
 
     def decode(self) -> list[tuple[np.ndarray, list[np.ndarray]]]:
         """run(), brought back to the host: [(raw_out [1, C, H, W], int64
         grids largest first), ...] in item order."""
         raw, grids = self.run()
-        raw_np = raw.cpu().numpy()
-        grids_np = [g.cpu().numpy() for g in grids]
+        with trace.span("decode.copy_out"):
+            raw_np = raw.cpu().numpy()
+            grids_np = [g.cpu().numpy() for g in grids]
+        if trace.on():
+            trace.count("decode.d2h_bytes", raw_np.nbytes + sum(g.nbytes for g in grids_np))
         return [(raw_np[g:g + 1], [gr[g].astype(np.int64) for gr in grids_np])
                 for g in range(self.G)]
 
 
+@trace.spanned("decode.prepare")
 def prepare_batch(items: list[tuple[CoolChicHeader, bytes, bytes]],
                   device: str | torch.device = "cuda") -> DeviceBatch:
     """items: (header, bytes_nn, bytes_latent) per image; all must share one
@@ -325,24 +337,25 @@ def prepare_batch(items: list[tuple[CoolChicHeader, bytes, bytes]],
             raise ValueError("device batch requires one architecture group")
         if cfg.flag_common_randomness:
             raise ValueError("common-randomness decode takes the host path")
-        nn = decode_network(bytes_nn, cfg, header.nn_q_step_shift,
-                            header.nn_expgol_cnt, header.nn_n_bit_pad)
-        states.append({
-            "cfg": cfg, "header": header, "nn": nn,
-            "arm": _main_arm_params(nn, header, cfg, 1),
-            "blocks": _parse_level_blocks(cfg, bytes_latent),
-        })
+        with trace.span("decode.prepare.nn"):
+            nn = decode_network(bytes_nn, cfg, header.nn_q_step_shift,
+                                header.nn_expgol_cnt, header.nn_n_bit_pad)
+            arm = _main_arm_params(nn, header, cfg, 1)
+        with trace.span("decode.prepare.blocks"):
+            blocks = _parse_level_blocks(cfg, bytes_latent)
+        states.append({"cfg": cfg, "header": header, "nn": nn, "arm": arm, "blocks": blocks})
 
     # int32 certificate of the on-device IFCE forward against raw symbol
     # inputs (the main ARM's certificate is the encoder's, per grid).
-    for s in states:
-        cfg = s["cfg"]
-        if cfg.flag_ifce:
-            for level in ifce_arm_index(cfg.input_features_ifce):
-                fp = _ifce_fixed_params(s["nn"], cfg, s["header"], level, model=1)
-                dim_in = fp["trunk_weights"][0].shape[0]
-                if not arm8_bounds_ok(fp, np.full(dim_in, 64.0 * 256.0)):
-                    raise ValueError("IFCE int32 certificate failed; host path")
+    with trace.span("decode.prepare.certificate"):
+        for s in states:
+            cfg = s["cfg"]
+            if cfg.flag_ifce:
+                for level in ifce_arm_index(cfg.input_features_ifce):
+                    fp = _ifce_fixed_params(s["nn"], cfg, s["header"], level, model=1)
+                    dim_in = fp["trunk_weights"][0].shape[0]
+                    if not arm8_bounds_ok(fp, np.full(dim_in, 64.0 * 256.0)):
+                        raise ValueError("IFCE int32 certificate failed; host path")
 
     return DeviceBatch(states, dev)
 

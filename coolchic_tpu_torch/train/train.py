@@ -52,6 +52,7 @@ from coolchic_tpu_torch.train.soap import (
     soap_step_leaf,
 )
 from coolchic_tpu_torch.train.wasserstein import make_wasserstein_fn
+from coolchic_tpu_torch.utils import trace
 
 ETA_MIN = 1e-5
 
@@ -91,13 +92,13 @@ class EncoderMonitor:
 
     @contextmanager
     def timed(self, name: str):
-        t0 = time.time()
+        t0 = time.perf_counter()
         try:
             yield
         finally:
             if self.device is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            dt = time.time() - t0
+            dt = time.perf_counter() - t0
             self.phase_time_sec[name] = self.phase_time_sec.get(name, 0.0) + dt
             self.sample_device_memory()
 
@@ -225,6 +226,7 @@ class PhaseFns:
         return loss_function(out.decoded_image, out.rate, target, self.dist_weight, lmbda,
                              wasserstein_fn=self.wasserstein_fn(target))
 
+    @trace.spanned("train.grads")
     def grads(self, leaves: list, noise, temp, target, lmbda, refs=None) -> list:
         """d(sum of the images' losses)/d(leaf) per trainable leaf (zeros
         for a leaf the loss does not reach), None for frozen leaves. The
@@ -235,8 +237,10 @@ class PhaseFns:
             req = [x.detach().requires_grad_(grp != FROZEN)
                    for x, grp in zip(leaves, self.groups)]
             train = [x for x in req if x.requires_grad]
-            lo = self.loss(req, noise, temp, target, lmbda, refs)
-            gs = iter(torch.autograd.grad(lo.loss.sum(), train, allow_unused=True))
+            with trace.span("train.forward"):
+                lo = self.loss(req, noise, temp, target, lmbda, refs)
+            with trace.span("train.backward"):
+                gs = iter(torch.autograd.grad(lo.loss.sum(), train, allow_unused=True))
         out = []
         for x in req:
             if not x.requires_grad:
@@ -246,28 +250,32 @@ class PhaseFns:
             out.append(torch.zeros_like(x) if g is None else g)
         return out
 
+    @trace.spanned("train.step", root=True)
     def step(self, leaves: list, states: list, noise, temp, lr: torch.Tensor,
              target, lmbda, refs=None, *, refresh: bool) -> tuple[list, list]:
         grads = self.grads(leaves, noise, temp, target, lmbda, refs)
         # Global-norm clip of the WEIGHT group at 0.1, per image
         # (reference train.py:228).
-        sq = sum(torch.square(g).flatten(1).sum(dim=1)
-                 for g, grp in zip(grads, self.groups) if grp == WEIGHT)
-        norm = torch.sqrt(sq)
-        clip = torch.minimum(torch.ones_like(norm), 0.1 / (norm + 1e-6))
+        with trace.span("train.clip"):
+            sq = sum(torch.square(g).flatten(1).sum(dim=1)
+                     for g, grp in zip(grads, self.groups) if grp == WEIGHT)
+            norm = torch.sqrt(sq)
+            clip = torch.minimum(torch.ones_like(norm), 0.1 / (norm + 1e-6))
         new_p, new_s = [], []
-        for p, g, s, grp in zip(leaves, grads, states, self.groups):
-            if grp == FROZEN or s is None:
-                new_p.append(p)
-                new_s.append(s)
-                continue
-            if grp == WEIGHT:
-                g = g * clip.reshape((-1,) + (1,) * (g.dim() - 1))
-                p2, s2 = soap_step_leaf(g, s, p, lr, self.hp_weight, refresh=refresh)
-            else:
-                p2, s2 = soap_step_leaf(g, s, p, lr, self.hp_latent, refresh=False)
-            new_p.append(p2.detach())
-            new_s.append(s2)
+        with trace.span("train.soap"), (trace.span("train.soap.refresh") if refresh
+                                        else trace.OFF):
+            for p, g, s, grp in zip(leaves, grads, states, self.groups):
+                if grp == FROZEN or s is None:
+                    new_p.append(p)
+                    new_s.append(s)
+                    continue
+                if grp == WEIGHT:
+                    g = g * clip.reshape((-1,) + (1,) * (g.dim() - 1))
+                    p2, s2 = soap_step_leaf(g, s, p, lr, self.hp_weight, refresh=refresh)
+                else:
+                    p2, s2 = soap_step_leaf(g, s, p, lr, self.hp_latent, refresh=False)
+                new_p.append(p2.detach())
+                new_s.append(s2)
         return new_p, new_s
 
     def window(self, leaves: list, states: list, draw, n_steps: int, temp,
