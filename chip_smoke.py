@@ -29,6 +29,10 @@ Phases, each fatal on failure:
      stream, csrc/wavefront_decode_pr1.cu), each in full (bit-exact against
      the main kernel) and with each part stubbed (-DWFD_ABLATE), in us per
      wavefront;
+ 4b. the small-grid decode (the grids coded on fewer than 128 streams) of
+     phase 3's batch and of its first image: each launch by CUDA events,
+     kernel == plain == host C++, the plain version's and the host C++
+     decode's time (host clock), each launch's bound;
   5. the intra encode: phase 3's first frame, written as a .ppm, encoded
      by the port's CLI (coolchic_tpu_torch.cc_encode.main: hop, debug
      recipe, `tpu` profile, --no_rdoq, --device cuda; exit 0 carries its
@@ -1792,7 +1796,8 @@ def level_routes(path: Path, dev) -> list:
     out = []
     for level, (h, w) in enumerate(cfg.size_per_latent):
         row = {"level": level, "shape": [h, w], "streams": blocks[level]["n_streams"],
-               "route": "kernel" if level in batch.device_levels else "host C++"}
+               "route": "kernel" if level in batch.device_levels else
+               "small-grid kernel" if level in batch.small_levels else "host C++"}
         if level in timed:
             row.update(kernel_ms=timed[level][0], wavefronts=timed[level][1],
                        step=wfd.tpu_wavefront_step(w))
@@ -1804,6 +1809,92 @@ def level_routes(path: Path, dev) -> list:
                               h, w, dim, cfg.n_hidden_layers_arm)
                           else "a coarser level is on the host")
         out.append(row)
+    return out
+
+
+def small_grid_phase(dev, items: list) -> dict:
+    """Phase 4b: the small-grid decode (ops/small_grid_decode.py) alone, on
+    the grids of `items` (header, bytes_nn, bytes_latent) coded on fewer
+    than 128 streams, at G = len(items) and G = 1: each launch of the batch
+    (the grids with no IFCE inputs together, then each level with IFCE
+    inputs, its context made once beforehand) by CUDA events, median of
+    N_TIMED; its plain version on the card and the host C++ decode of the
+    same grids by the host clock, one call; kernel == plain == host C++;
+    the launch's bound (bytes at the HBM rate against the integer
+    operations the wavefront kernel's bound counts a pixel, at the
+    CUDA-core rate)."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.bitstream import codec
+    from coolchic_tpu_torch.bitstream.device_decode import _parse_level_blocks, prepare_batch
+    from coolchic_tpu_torch.bitstream.nncodec import decode_network
+    from coolchic_tpu_torch.ops import small_grid_decode as sgd
+    from coolchic_tpu_torch.ops.wavefront_decode import n_wavefronts
+
+    out = {}
+    for G in sorted({len(items), 1}, reverse=True):
+        batch = prepare_batch(items[:G], dev)
+        cfg, dim = batch.cfg, len(batch.taps) + batch.n_ifce
+        decoded = dict(batch.host_grids)
+        kern = torch.empty(batch.small_out_size, dtype=torch.int32, device=dev)
+        plain = torch.empty_like(kern)
+        runs, plain_s = [], 0.0
+        for r, (levels, j0, j1) in enumerate(batch.small_runs):
+            tensors, kw = batch.small_run_inputs(r, decoded)
+            sgd.small_grid_decode(*tensors, kern, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sgd.small_grid_decode_plain(*tensors[1:], plain, **kw)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            ms = cuda_ms(lambda: sgd.small_grid_decode(*tensors, kern, **kw))
+            jobs = kw["jobs_np"]
+            px = int(sum(int(h) * int(w) for h, w in jobs[:, :2]))
+            n_words = int(sum(len(ws) for it in items[:G]
+                              for lv in levels for ws in _parse_level_blocks(
+                                  cfg, it[2])[lv]["words"]))
+            n_params = int(batch.wtr[0].numel() + batch.btr[0].numel() + 2 * dim + 2)
+            n_bytes = 4 * (n_words + G * n_params + (0 if tensors[7] is None
+                                                    else tensors[7].numel()) + px)
+            ops_px = (2 * (cfg.n_hidden_layers_arm * dim * dim + 4 * dim)
+                      + 3 * cfg.n_hidden_layers_arm * dim + 9 * 32 + 10)
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops_px * px / CORE_OPS_PER_S
+            wavefronts = max(n_wavefronts(int(h), int(w)) for h, w in jobs[:, :2])
+            runs.append({"levels": list(levels), "grids": len(jobs), "ms": ms,
+                         "us_per_wavefront": 1e3 * ms / wavefronts,
+                         "serial_wavefronts": wavefronts,
+                         "bound_ms": 1e3 * max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            for level in levels:
+                h_i, w_i = cfg.size_per_latent[level]
+                off = batch.small_offsets[level]
+                decoded[level] = kern[off:off + G * h_i * w_i].view(G, h_i, w_i)
+        check(torch.equal(kern, plain), f"G={G}: small-grid kernel != its plain version")
+        host_s = 0.0
+        for g, (ch, bnn, blat) in enumerate(items[:G]):
+            nn = decode_network(bnn, cfg, ch.nn_q_step_shift, ch.nn_expgol_cnt, ch.nn_n_bit_pad)
+            arm8 = codec._main_arm_params(nn, ch, cfg, 1)
+            blocks = _parse_level_blocks(cfg, blat)
+            host = {lv: batch.host_grids[lv][g].cpu().numpy() for lv in batch.host_levels}
+            t0 = time.perf_counter()
+            for level in batch.small_levels:
+                host[level] = codec.decode_tpu_level_host(
+                    nn, cfg, ch, arm8, level, blocks[level]["words"],
+                    [host[lv] for lv in range(level + 1, cfg.n_latent_grids)])
+            host_s += time.perf_counter() - t0
+            for level in batch.small_levels:
+                check(np.array_equal(decoded[level][g].cpu().numpy(), host[level]),
+                      f"G={G} image {g} level {level}: small-grid kernel != host C++")
+        out[f"G{G}"] = {"runs": runs, "plain_ms": 1e3 * plain_s, "host_cpp_ms": 1e3 * host_s,
+                        "levels": list(batch.small_levels)}
+        print(f"[4b] small grids, levels {list(batch.small_levels)}, G={G}: kernel == plain "
+              "== host C++; " + "; ".join(
+                  f"levels {r['levels']} {r['ms']:.3f} ms ({r['us_per_wavefront']:.2f} us per "
+                  f"wavefront over {r['serial_wavefronts']}, bound {r['bound_ms']:.4f} ms, "
+                  f"{r['bound_by']})" for r in runs)
+              + f"; plain {1e3 * plain_s:.0f} ms, host C++ {1e3 * host_s:.1f} ms (host clock)",
+              flush=True)
     return out
 
 
@@ -2547,6 +2638,7 @@ def main() -> int:
     )
     from coolchic_tpu_torch.bitstream.nncodec import decode_network
     from coolchic_tpu_torch.core.constants import non_zero_pixel_ctx_index
+    from coolchic_tpu_torch.ops import small_grid_decode as sgd
     from coolchic_tpu_torch.ops import wavefront_decode as wfd
 
     dev = torch.device("cuda", 0)
@@ -2694,16 +2786,24 @@ def main() -> int:
         paths.append(str(p))
 
     wfd.KERNEL.launches = 0
+    sgd.KERNEL.launches = 0
     t0 = time.time()
     frames, routes = decode_images(paths, device=dev, return_routes=True)
     torch.cuda.synchronize()
     t_main = time.time() - t0
-    launches = wfd.KERNEL.launches
+    launches, small_launches = wfd.KERNEL.launches, sgd.KERNEL.launches
     check(all(r["path"] == "device" for r in routes), f"not all groups on device: {routes}")
     check(launches > 0, "decode_images launched no wavefront_decode kernel")
+    # each group launches the small-grid kernel once per run of its batch
+    # (every image shares the configuration, so every group has the runs of
+    # phase 2's batch)
+    check(batch.small_runs and small_launches == len(batch.small_runs) * len(routes),
+          f"decode_images launched small_grid_decode {small_launches} times, expected "
+          f"{len(batch.small_runs)} a group over {len(routes)} groups")
     print(f"[3] decode_images: {len(frames)} frames in {t_main:.2f} s (host work "
           f"included), routes {[(r['path'], r['items']) for r in routes]}, "
-          f"wavefront_decode launches {launches}", flush=True)
+          f"wavefront_decode launches {launches}, small_grid_decode launches "
+          f"{small_launches}", flush=True)
 
     outputs, _ = _decode_items_batched(items, dev)
     worst_raw = worst_code = 0.0
@@ -2813,6 +2913,7 @@ def main() -> int:
         ablation[name] = row
     print(json.dumps({"ablation_us_per_wavefront": ablation, "level": 0, "G": batch.G,
                       "wavefronts": D0, "card": card}), flush=True)
+    small = small_grid_phase(dev, items)
 
     # ------------------------------------------ 5-7. the intra encoder
     with tempfile.TemporaryDirectory() as wd:
@@ -2870,8 +2971,19 @@ def main() -> int:
         "level0_ms_by_G": by_g,
         "first_design_level0_ms": ablation["first"]["level0_g8_ms"],
         "batch_decode_ms": batch_ms,
-        "batch_split_ms": split,
         "mpix_per_s": mpix / batch_ms * 1e3,
+    }, {
+        "name": "small_grid_decode",
+        "route": "cuda",
+        "source": "coolchic_tpu_torch/csrc/small_grid_decode.cu",
+        "replaces": None,
+        "why": "no TPU kernel: the JAX package decodes the grids of fewer than 128 "
+               "streams on the host",
+        "launches_by_path": {"decode_images": small_launches},
+        "matches_plain": True,
+        "work": "phase 4b: each launch of the grids of fewer than 128 streams of phase 3's "
+                "batch, and of its first image",
+        **small,
     }]
     print(json.dumps({"encode_512x768_hop": enc, "card": card}), flush=True)
     print(json.dumps({"rdoq_512x768_hop": rdoq, "card": card}), flush=True)

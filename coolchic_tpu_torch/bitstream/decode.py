@@ -129,9 +129,14 @@ def _decode_items_batched(items: list, device: str | torch.device = "cuda"
         except ValueError as e:  # only what prepare_batch refuses; never a launch
             res = [decode_coolchic_tpu_host(*item, device=device) for item in sub]
             route = {"items": idxs, "path": "host", "reason": str(e)}
+            n_small, n_host = 0, sub[0][0].n_latent_grids
         else:
             res = batch.decode()
             route = {"items": idxs, "path": "device", "reason": None}
+            n_small, n_host = len(batch.small_levels), len(batch.host_levels)
+        # grids an image sent to the small-grid kernel, and left to the host
+        trace.count("decode.small_grids.device", n_small * len(sub))
+        trace.count("decode.small_grids.host", n_host * len(sub))
         routes.append(route)
         for i, r in zip(idxs, res):
             outputs[i] = r

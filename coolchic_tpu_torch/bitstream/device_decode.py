@@ -2,21 +2,26 @@
 
 For a group of same-architecture images:
 
-  host:   parse headers, exp-Golomb NN decode, range-decode the small grids
-          (n_streams != 128: microseconds of C++), upload the stream words.
-  device: for each 128-stream level (coarse -> fine):
-            IFCE context (int32 fixed point, certified) from the already
-            decoded coarser grids -> shear to the kernel layout -> CUDA
-            wavefront range decode (ops/wavefront_decode.py);
+  host:   parse headers, exp-Golomb NN decode, range-decode the grids
+          neither kernel takes (raster-coded grids with w <= 9, the
+          coarsest of a ladder), upload the stream words.
+  device: every grid with fewer than 128 streams and no IFCE inputs, of
+          every image, in one launch of the small-grid decode
+          (ops/small_grid_decode.py); then for each remaining level
+          (coarse -> fine): IFCE context (int32 fixed point, certified)
+          from the already decoded coarser grids -> the small-grid decode
+          (fewer than 128 streams), or a shear to the kernel layout -> CUDA
+          wavefront range decode (128 streams, ops/wavefront_decode.py);
           then the float tail (learned upsampling + synthesis + rescale)
           over the image batch.
 
-Only the stream words go host->device and only the final images and grids
-come back. Bit-exactness: the kernel computes the host C++ decoder's
-function, and the IFCE forward is int32 under an encoder-grade overflow
-certificate checked on the host before routing (int32 wraparound is exact
-whenever the true value fits), so the integer path equals the host
-decoder's; tests/test_torch_device_decode.py pins it.
+Which way a grid goes follows from its bitstream: its stream count and its
+shape. Only the stream words go host->device and only the final images and
+grids come back. Bit-exactness: both kernels compute the host C++
+decoder's function, and the IFCE forward is int32 under an encoder-grade
+overflow certificate checked on the host before routing (int32 wraparound
+is exact whenever the true value fits), so the integer path equals the
+host decoder's; tests/test_torch_device_decode.py pins it.
 
 Reference parity: coolchic_tpu/bitstream/device_decode.py.
 """
@@ -43,6 +48,7 @@ from coolchic_tpu_torch.models.arm import ifce_arm_index
 from coolchic_tpu_torch.models.params import params_from_jax
 from coolchic_tpu_torch.models.synthesis import synthesis_batched
 from coolchic_tpu_torch.models.upsampling import upsampling_batched
+from coolchic_tpu_torch.ops import small_grid_decode as sgd
 from coolchic_tpu_torch.ops import wavefront_decode as wfd
 from coolchic_tpu_torch.ops.resize import interpolate
 from coolchic_tpu_torch.utils import trace
@@ -175,27 +181,42 @@ class DeviceBatch:
         self.n_ifce = cfg.output_feature_ifce if cfg.flag_ifce else 0
         dim = cfg.spatial_context_arm + self.n_ifce
 
-        # Levels the kernel covers: 128 streams and a shape it takes. Decided
-        # here, before anything runs on the device.
+        # The route of each level, by what the bitstream says, decided here
+        # before anything runs on the device: 128 streams and a shape the
+        # wavefront kernel takes (device_levels); fewer streams and a shape
+        # the small-grid kernel takes (small_levels); else the host.
+        levels = range(cfg.n_latent_grids - 1, -1, -1)       # coarse -> fine
+        n_streams = {}
+        for level in levels:
+            ns = {s["blocks"][level]["n_streams"] for s in states}
+            if len(ns) != 1:
+                raise ValueError(f"level {level} has different stream counts; host path")
+            n_streams[level] = ns.pop()
         self.device_levels = tuple(
-            level for level in range(cfg.n_latent_grids - 1, -1, -1)
-            if st0["blocks"][level]["n_streams"] == LANES
+            level for level in levels if n_streams[level] == LANES
             and wfd.kernel_eligible(*cfg.size_per_latent[level], dim,
                                     cfg.n_hidden_layers_arm))
-        # Host levels decode before the device ones, so every device level
-        # must be finer than every host level.
-        if set(self.device_levels) != set(range(len(self.device_levels))):
-            raise ValueError("non-contiguous device levels; host path")
+        self.small_levels = tuple(
+            level for level in levels if n_streams[level] < LANES
+            and sgd.kernel_eligible(*cfg.size_per_latent[level], n_streams[level], dim,
+                                    cfg.n_hidden_layers_arm))
+        self.host_levels = tuple(level for level in levels if level not in
+                                 self.device_levels + self.small_levels)
+        # Host levels decode before the device ones, so every host level
+        # must be coarser than every device level (narrow grids are the
+        # coarsest of a ladder).
+        on_device = self.device_levels + self.small_levels
+        if self.host_levels and on_device and min(self.host_levels) < max(on_device):
+            raise ValueError("a host-route grid finer than a device grid; host path")
 
         with trace.span("decode.prepare.host_levels"):
-            for s in states:  # host-decode the grids below the kernel threshold
+            for s in states:  # host-decode the grids neither kernel takes
                 s["decoded"] = {}
-                for level in range(cfg.n_latent_grids - 1, -1, -1):
-                    if level not in self.device_levels:
-                        s["decoded"][level] = decode_tpu_level_host(
-                            s["nn"], cfg, s["header"], s["arm"], level,
-                            s["blocks"][level]["words"],
-                            [s["decoded"][l] for l in range(level + 1, cfg.n_latent_grids)])
+                for level in self.host_levels:
+                    s["decoded"][level] = decode_tpu_level_host(
+                        s["nn"], cfg, s["header"], s["arm"], level,
+                        s["blocks"][level]["words"],
+                        [s["decoded"][l] for l in range(level + 1, cfg.n_latent_grids)])
 
         def dev(a) -> torch.Tensor:
             return torch.as_tensor(a, device=device)
@@ -220,18 +241,15 @@ class DeviceBatch:
             self.taps = wfd._tap_list(non_zero_pixel_ctx_index(cfg.spatial_context_arm))
 
             # Per-device-level IFCE fixed-point params stacked over the batch, and
-            # the int16 packing certificate |ctx| <= (|b| + 64*2^8*sum|W|) >> 8
-            # (+1 for the floor of the arithmetic shift), which must hold for
-            # every image of the batch to pack two features per int32 word.
-            self.ifce_ws, self.ifce_bs, packed = {}, {}, []
-            for level in self.device_levels:
-                if self.n_ifce == 0:
-                    packed.append(False)
+            # for the wavefront kernel the int16 packing certificate |ctx| <=
+            # (|b| + 64*2^8*sum|W|) >> 8 (+1 for the floor of the arithmetic
+            # shift), which must hold for every image of the batch to pack two
+            # features per int32 word.
+            self.ifce_ws, self.ifce_bs, fits = {}, {}, {}
+            for level in on_device:
+                if self.n_ifce == 0 or cfg.input_features_ifce[level] == 0:
                     continue
-                if cfg.input_features_ifce[level] == 0:
-                    packed.append(True)  # a zero context packs trivially
-                    continue
-                per_w, per_b, fits16 = [], [], True
+                per_w, per_b, fits[level] = [], [], True
                 for s in states:
                     fp = _ifce_fixed_params(s["nn"], cfg, s["header"], level, model=1)
                     per_w.append(np.asarray(fp["trunk_weights"][0], np.int32))
@@ -239,19 +257,81 @@ class DeviceBatch:
                     bound = (np.abs(per_b[-1].astype(np.float64))
                              + 64.0 * 256.0 * np.abs(per_w[-1].astype(np.float64)).sum(0)
                              ) / 256.0 + 1.0
-                    fits16 = fits16 and bool(bound.max() < 32768.0)
+                    fits[level] = fits[level] and bool(bound.max() < 32768.0)
                 self.ifce_ws[level] = dev(np.stack(per_w))
                 self.ifce_bs[level] = dev(np.stack(per_b))
-                packed.append(fits16)
-            self.packed_per_level = tuple(packed)
+            # a zero context packs trivially
+            self.packed_per_level = tuple(self.n_ifce > 0 and fits.get(level, True)
+                                          for level in self.device_levels)
             self.host_grids = {
                 level: dev(np.stack([np.asarray(s["decoded"][level], np.int32)
                                      for s in states]))
-                for level in range(cfg.n_latent_grids) if level not in self.device_levels}
+                for level in self.host_levels}
+
+            # the small grids: one job table, stream table and words buffer,
+            # the grids with no IFCE inputs first (one launch), then each
+            # level with IFCE inputs (one launch each, its context made on
+            # the device at the next level's size [G, h_c * w_c, n_ifce]).
+            # small_runs: (levels, first job, end job) of each launch.
+            ifce_free = tuple(lv for lv in self.small_levels if lv not in self.ifce_ws)
+            runs = ([ifce_free] if ifce_free else []) + [
+                (lv,) for lv in self.small_levels if lv in self.ifce_ws]
+            grids, self.small_runs, self.small_offsets = [], [], {}
+            for run in runs:
+                self.small_runs.append((run, len(grids), len(grids) + len(run) * G))
+                for level in run:
+                    h_i, w_i = cfg.size_per_latent[level]
+                    h_c, w_c = (cfg.size_per_latent[level + 1] if level in self.ifce_ws
+                                else (0, 0))
+                    for g, s in enumerate(states):
+                        grids.append({"h": h_i, "w": w_i, "image": g,
+                                      "words": s["blocks"][level]["words"],
+                                      "ifce_off": g * h_c * w_c * self.n_ifce if w_c else -1,
+                                      "ifce_w": w_c})
+            if grids:
+                p = sgd.pack(grids)
+                self.small_jobs_np = p["jobs"]
+                self.small_jobs, self.small_streams, self.small_words = (
+                    dev(p[k]) for k in ("jobs", "streams", "words"))
+                self.small_out_size = p["out_size"]
+                for run, j0, _ in self.small_runs:
+                    for i, level in enumerate(run):
+                        self.small_offsets[level] = int(p["jobs"][j0 + i * G, 5])
 
         # float tail: one (Upsampling, Synthesis) per image
         with trace.span("decode.prepare.modules"):
             self.modules = [params_from_jax(s["nn"], cfg, device) for s in states]
+
+    def small_run_inputs(self, run: int, decoded: dict) -> tuple[list, dict]:
+        """Inputs of the launch of small_runs[run] for the whole batch:
+        ([jobs, streams, words, wtr, btr, stw, stb, ifce], keywords) for
+        ops/small_grid_decode.small_grid_decode, with the IFCE context of a
+        level computed on the device from `decoded` (level -> [G, h, w]
+        int32 grids of the coarser levels) in the span decode.ifce."""
+        cfg = self.cfg
+        levels, j0, j1 = self.small_runs[run]
+        ifce = None
+        if levels[0] in self.ifce_ws:
+            with trace.span("decode.ifce"):
+                finer = [decoded[l] for l in range(levels[0] + 1, cfg.n_latent_grids)]
+                ifce = _ifce_ctx_device(finer, cfg, self.ifce_ws[levels[0]],
+                                        self.ifce_bs[levels[0]])[0].reshape(-1)
+        tensors = [self.small_jobs[j0:j1], self.small_streams, self.small_words, self.wtr,
+                   self.btr, self.stw, self.stb, ifce]
+        return tensors, dict(jobs_np=self.small_jobs_np[j0:j1], taps=self.taps, dims=self.dims,
+                             n_ifce=self.n_ifce)
+
+    def decode_small_run(self, run: int, decoded: dict, out: torch.Tensor) -> None:
+        """Launch small_runs[run] into `out` (the small grids' flat int32
+        buffer) inside the span decode.small_grids, and add its grids to
+        `decoded` (every coarser level already there)."""
+        with trace.span("decode.small_grids"):
+            tensors, kw = self.small_run_inputs(run, decoded)
+            sgd.small_grid_decode(*tensors, out, **kw)
+        for level in self.small_runs[run][0]:
+            h_i, w_i = self.cfg.size_per_latent[level]
+            off = self.small_offsets[level]
+            decoded[level] = out[off:off + self.G * h_i * w_i].view(self.G, h_i, w_i)
 
     def kernel_inputs(self, li: int, decoded: dict) -> tuple[list, dict]:
         """Inputs of the wavefront decode of device level self.device_levels[li]
@@ -284,7 +364,19 @@ class DeviceBatch:
         cfg, G = self.cfg, self.G
         decoded = dict(self.host_grids)
         with torch.no_grad():
-            for li, level in enumerate(self.device_levels):  # coarse -> fine
+            if self.small_runs:
+                small_out = torch.empty(self.small_out_size, dtype=torch.int32,
+                                        device=self.device)
+            # the small grids with no IFCE inputs first, then every other
+            # device level, coarse -> fine
+            runs = {levels[0]: r for r, (levels, _, _) in enumerate(self.small_runs)}
+            for level in sorted(set(self.small_levels) | set(self.device_levels),
+                                reverse=True):
+                if level in runs:
+                    self.decode_small_run(runs[level], decoded, small_out)
+                if level not in self.device_levels:
+                    continue
+                li = self.device_levels.index(level)
                 (words, wtr, btr, stw, stb, ifce), kw = self.kernel_inputs(li, decoded)
                 limit = wfd.grid_batch_limit(kw["h"], kw["w"], ifce.shape[1],
                                              words.shape[0], G, self.device)

@@ -205,7 +205,7 @@ class _WavefrontKernel:
                 src, stem,
                 [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                  "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", *defs],
-                timeout=600)
+                timeout=600, deps=(_CSRC / "tpu_cdf.cuh",))
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.wavefront_decode_launch.argtypes = [p] * 8 + [i] * n_int + [p]
@@ -341,6 +341,67 @@ def _mul_u32x(a: torch.Tensor, a_hi8: torch.Tensor, b: torch.Tensor):
     return (p >> 32) + a_hi8 * b, p & _M32
 
 
+def _arm_tensors(wtr, btr, stw, stb, dims: tuple) -> tuple:
+    """The flat X.8 ARM parameters of G grids as int64 tensors: ([G, in, out]
+    trunk weights, [G, 1, out] biases, [G, dim, 2] stabiliser weights,
+    [G, 1, 2] stabiliser biases)."""
+    G = wtr.shape[0]
+    i64 = torch.int64
+    wmats, bvecs = [], []
+    w_off = b_off = 0
+    for n_in, n_out in dims:
+        wmats.append(wtr[:, w_off:w_off + n_in * n_out].to(i64).reshape(G, n_in, n_out))
+        bvecs.append(btr[:, b_off:b_off + n_out].to(i64)[:, None, :])
+        w_off += n_in * n_out
+        b_off += n_out
+    return wmats, bvecs, stw.to(i64).reshape(G, dims[0][0], 2), stb.to(i64)[:, None, :]
+
+
+def _arm_mu_slope(ctx: torch.Tensor, arm: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """The X.8 ARM (exact integers; the kernels' int32 is certified) on
+    contexts [G, n, dim] -> (mu_fp, slope), each [G, n]."""
+    wmats, bvecs, st_w, st_b = arm
+    st = (ctx[..., None] * st_w[:, None]).sum(2) + st_b
+    act = ctx
+    for li, (wm, bv) in enumerate(zip(wmats, bvecs)):
+        acc = (act[..., None] * wm[:, None]).sum(2) + bv
+        act = (acc + st) >> 8 if li == len(wmats) - 1 else torch.relu(acc) >> 8
+    idx_mu = torch.clamp(act[..., 0] - MU_MIN_FIXED_POINT, 0, N_POSSIBLE_MU - 1)
+    slope = _slope_of(torch.clamp(act[..., 1] - LOG_SCALE_MIN_FIXED_POINT, 0,
+                                  N_POSSIBLE_SCALE - 1))
+    return idx_mu + MU_MIN_FIXED_POINT, slope
+
+
+def _quantile(lo_hi, lo_lo, rg_hi, rg_lo, pt_hi, pt_lo) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scale = range >> 24, min((point - lower) // scale, 2^24 - 1)) of
+    coder states held as (hi, lo) 32-bit halves."""
+    i64 = torch.int64
+    scale = (rg_hi << 8) | (rg_lo >> 24)                  # < 2^40
+    t_lo = pt_lo - lo_lo
+    t_hi = (pt_hi - lo_hi - (t_lo < 0).to(i64)) & _M32
+    t_lo = t_lo & _M32
+    a = (t_hi << 16) | (t_lo >> 16)                       # t >> 16
+    q_a = a // scale
+    r_a = a - q_a * scale
+    quant = torch.clamp((q_a << 16) + (((r_a << 16) | (t_lo & 0xFFFF)) // scale), max=_QMAX)
+    return scale, quant
+
+
+def _advance(lo_hi, lo_lo, scale, left, prob) -> tuple:
+    """The coder's advance by (left, prob) at `scale`: (lower hi, lower lo,
+    range hi, range lo, renormalise) after the renormalisation, which
+    shifts lower and range by 32 bits where the new range is below 2^32."""
+    sc_hi, sc_lo = scale >> 32, scale & _M32
+    al_hi, al_lo = _mul_u32x(sc_lo, sc_hi, left)
+    nlo_lo = lo_lo + al_lo
+    nlo_hi = (lo_hi + al_hi + (nlo_lo >> 32)) & _M32
+    nlo_lo = nlo_lo & _M32
+    rp_hi, rp_lo = _mul_u32x(sc_lo, sc_hi, prob)
+    renorm = rp_hi == 0
+    return (torch.where(renorm, nlo_lo, nlo_hi), torch.where(renorm, 0, nlo_lo),
+            torch.where(renorm, rp_lo, rp_hi), torch.where(renorm, 0, rp_lo), renorm)
+
+
 def wavefront_decode_plain(words, wtr, btr, stw, stb, ifce, *, h: int, w: int,
                            taps: tuple, dims: tuple, n_ifce: int,
                            ifce_packed: bool) -> torch.Tensor:
@@ -353,20 +414,10 @@ def wavefront_decode_plain(words, wtr, btr, stw, stb, ifce, *, h: int, w: int,
     step = tpu_wavefront_step(w)
     D = n_wavefronts(h, w)
     n_spatial = len(taps)
-    dim = n_spatial + n_ifce
     i64 = torch.int64
 
     words64 = words.to(i64) & _M32
-    # trunk layers as [G, in, out] int64
-    wmats, bvecs = [], []
-    w_off = b_off = 0
-    for n_in, n_out in dims:
-        wmats.append(wtr[:, w_off:w_off + n_in * n_out].to(i64).reshape(G, n_in, n_out))
-        bvecs.append(btr[:, b_off:b_off + n_out].to(i64)[:, None, :])
-        w_off += n_in * n_out
-        b_off += n_out
-    st_w = stw.to(i64).reshape(G, dim, 2)
-    st_b = stb.to(i64)[:, None, :]
+    arm = _arm_tensors(wtr, btr, stw, stb, dims)
 
     wp = w + 8
     n_store = (h + 4) * wp
@@ -400,28 +451,8 @@ def wavefront_decode_plain(words, wtr, btr, stw, stb, ifce, *, h: int, w: int,
                 v = torch.stack([lo16, v >> 16], dim=-1).reshape(G, LANES, -1)
             ctx = torch.cat([ctx, v[..., :n_ifce]], dim=-1)
         ctx = torch.where(active[..., None], ctx, 0)
-
-        # ---- X.8 ARM (exact integers; the kernel's int32 is certified)
-        st = (ctx[..., None] * st_w[:, None]).sum(2) + st_b
-        act = ctx
-        for li, (wm, bv) in enumerate(zip(wmats, bvecs)):
-            acc = (act[..., None] * wm[:, None]).sum(2) + bv
-            act = (acc + st) >> 8 if li == len(dims) - 1 else torch.relu(acc) >> 8
-        idx_mu = torch.clamp(act[..., 0] - MU_MIN_FIXED_POINT, 0, N_POSSIBLE_MU - 1)
-        mu_fp = idx_mu + MU_MIN_FIXED_POINT
-        slope = _slope_of(torch.clamp(act[..., 1] - LOG_SCALE_MIN_FIXED_POINT, 0,
-                                      N_POSSIBLE_SCALE - 1))
-
-        # ---- quantile = min((point - lower) // (range >> 24), 2^24 - 1)
-        scale = (rg_hi << 8) | (rg_lo >> 24)                  # < 2^40
-        t_lo = pt_lo - lo_lo
-        t_hi = (pt_hi - lo_hi - (t_lo < 0).to(i64)) & _M32
-        t_lo = t_lo & _M32
-        a = (t_hi << 16) | (t_lo >> 16)                       # t >> 16
-        q_a = a // scale
-        r_a = a - q_a * scale
-        quant = torch.clamp((q_a << 16) + (((r_a << 16) | (t_lo & 0xFFFF)) // scale),
-                            max=_QMAX)
+        mu_fp, slope = _arm_mu_slope(ctx, arm)
+        scale, quant = _quantile(lo_hi, lo_lo, rg_hi, rg_lo, pt_hi, pt_lo)
 
         # ---- 7-step binary search: max s with left_cum(s) <= quantile
         s_sym = torch.full_like(quant, SYM_MIN)
@@ -434,20 +465,14 @@ def wavefront_decode_plain(words, wtr, btr, stw, stb, ifce, *, h: int, w: int,
         prob = torch.where(s_sym >= SYM_MAX, (1 << PRECISION) - left, nxt - left)
 
         # ---- advance and renormalise the active streams
-        sc_hi, sc_lo = scale >> 32, scale & _M32
-        al_hi, al_lo = _mul_u32x(sc_lo, sc_hi, left)
-        nlo_lo = lo_lo + al_lo
-        nlo_hi = (lo_hi + al_hi + (nlo_lo >> 32)) & _M32
-        nlo_lo = nlo_lo & _M32
-        rp_hi, rp_lo = _mul_u32x(sc_lo, sc_hi, prob)
-        renorm = rp_hi == 0
+        n_lo_hi, n_lo_lo, n_rg_hi, n_rg_lo, renorm = _advance(lo_hi, lo_lo, scale, left, prob)
         ren = active & renorm
         nw = torch.gather(flat_words, 2, cur.clamp(max=R - 1)[..., None])[..., 0]
         nw = torch.where(cur < R, nw, 0)   # past the buffer: zero padding
-        lo_hi = torch.where(active, torch.where(renorm, nlo_lo, nlo_hi), lo_hi)
-        lo_lo = torch.where(active, torch.where(renorm, 0, nlo_lo), lo_lo)
-        rg_hi = torch.where(active, torch.where(renorm, rp_lo, rp_hi), rg_hi)
-        rg_lo = torch.where(active, torch.where(renorm, 0, rp_lo), rg_lo)
+        lo_hi = torch.where(active, n_lo_hi, lo_hi)
+        lo_lo = torch.where(active, n_lo_lo, lo_lo)
+        rg_hi = torch.where(active, n_rg_hi, rg_hi)
+        rg_lo = torch.where(active, n_rg_lo, rg_lo)
         pt_hi = torch.where(ren, pt_lo, pt_hi)
         pt_lo = torch.where(ren, nw, pt_lo)
         cur = cur + ren.to(i64)

@@ -19,12 +19,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 
 def build_shared_library(src: Path, stem: str, compile_cmd: list[str],
-                         timeout: float | None = None) -> Path:
+                         timeout: float | None = None, deps: tuple[Path, ...] = ()) -> Path:
     """Compile `src` into BUILD_DIR/lib<stem>-<hash>.so unless present.
     compile_cmd is the compiler and its flags; the source and `-o <out>`
-    are appended. Raises subprocess.TimeoutExpired after `timeout` s."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(compile_cmd).encode()
-                            ).hexdigest()[:12]
+    are appended. `deps` are the headers `src` includes, hashed with it.
+    Raises subprocess.TimeoutExpired after `timeout` s."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in (src, *deps))
+                            + " ".join(compile_cmd).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{stem}-{digest}.so"
     if lib.exists():
         return lib

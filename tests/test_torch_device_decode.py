@@ -5,7 +5,7 @@ frame-level entry points, against the JAX package on the same bitstreams.
 Three 128x192 hop bitstreams of the repo are transcoded to the `tpu` profile
 with 128 streams forced down to 384-pixel grids in BOTH packages (as
 tests/test_device_decode.py does), so the wavefront path covers levels
-0..3. Grids are bit-exact; the float output agrees within 2e-5 (f32
+0..3, the small-grid decode levels 4 and 5, and the host levels 6..9. Grids are bit-exact; the float output agrees within 2e-5 (f32
 summation order only)."""
 
 import glob
@@ -89,6 +89,9 @@ def test_device_decode_matches_jax_host(transcoded):
     items = [t["item"] for t in transcoded]
     batch = prepare_batch(items, device="cpu")
     assert batch.device_levels == (3, 2, 1, 0)
+    # the 8x12 grids (one stream) on the small-grid decode, the narrower
+    # ones (raster-coded) on the host
+    assert batch.small_levels == (5, 4) and batch.host_levels == (9, 8, 7, 6)
     for t, (raw_dev, grids_dev) in zip(transcoded, decode_images_device(items, "cpu")):
         assert len(grids_dev) == len(t["grids_host"])
         for a, b in zip(t["grids_host"], grids_dev):

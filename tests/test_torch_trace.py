@@ -8,7 +8,8 @@ it issued.
 The decode runs on two 128x192 files of the repo transcoded to the `tpu`
 profile with 128 streams forced down to 384-pixel grids (as
 tests/test_torch_device_decode.py makes them), so every stage of the
-device batch runs (host levels, kernel levels, IFCE, the float tail)."""
+device batch runs (host levels, small grids, kernel levels, IFCE, the
+float tail)."""
 
 import glob
 import json
@@ -51,6 +52,7 @@ DECODE_PARENT = {
     "decode.prepare.upload": "decode.prepare",
     "decode.prepare.modules": "decode.prepare",
     "decode.device": "decode.call",
+    "decode.small_grids": "decode.device",
     "decode.ifce": "decode.device",
     "decode.kernel": "decode.device",
     "decode.float_tail": "decode.device",
@@ -149,6 +151,11 @@ def test_decode_spans_nest_one_call_id_per_call(tpu_files):
     assert summary["decode.prepare.blocks"]["count"] == 3
     assert summary["decode.finish"]["count"] == 3
     assert summary["decode.prepare"]["count"] == summary["decode.device"]["count"] == 2
+    # levels 4 and 5 (8x12, one stream) of each image in one small-grid
+    # launch a call; levels 6-9 (widths 6 and 3) on the host route
+    assert summary["decode.small_grids"]["count"] == 2
+    assert rec.counters["decode.small_grids.device"] == 2 * 3
+    assert rec.counters["decode.small_grids.host"] == 4 * 3
 
 
 def test_d2h_bytes_are_the_bytes_brought_back(tpu_files):
