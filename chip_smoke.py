@@ -33,6 +33,15 @@ Phases, each fatal on failure:
      phase 3's batch and of its first image: each launch by CUDA events,
      kernel == plain == host C++, the plain version's and the host C++
      decode's time (host clock), each launch's bound;
+ 4c. the ARM's weight gradient at the linear layers of a 512x768 training
+     step (hop at G = 8, lop at G = 1): each by CUDA events beside its
+     bound, its plain version, the library's split of the same sums and
+     the unsplit torch.bmm; kernel against an f64 sum (WGRAD_TOL, which
+     both TF32 controls must fail) and its plain version
+     (WGRAD_PLAIN_TOL), two runs bit for bit; one training step's
+     launches, one a linear layer. Every later path that trains (5-11)
+     counts its arm_wgrad launches from 0 and holds them to its weight
+     gradients and its layers' widths (wgrad_path);
   5. the intra encode: phase 3's first frame, written as a .ppm, encoded
      by the port's CLI (coolchic_tpu_torch.cc_encode.main: hop, debug
      recipe, `tpu` profile, --no_rdoq, --device cuda; exit 0 carries its
@@ -158,6 +167,7 @@ a CUDA card or outside a checkout of the repo.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
 import json
@@ -188,6 +198,17 @@ DESIGNS = (("team", 4), ("team", 8), ("first", 1))
 # not held: a symbol near the 2^-16 probability floor has a large gradient
 # whose f32 CDF difference is off by up to 2^-24 / 2^-16 on either device.
 STEP_GRAD_TOL = 1e-3
+# Phase 4c: the arm_wgrad kernel against an f64 sum, each output's error
+# over the root of the sum of its terms' squares, the size that
+# independent roundings of the terms add up to. On an H100 at a 512x768
+# step's layers the kernel reads at most 2.2e-6 and the TF32 controls at
+# least 4.6e-4 (TF32 rounds each term by about 2^-11 of itself); over the
+# sum of the terms' magnitudes the controls read as little as 1.1e-6 at
+# B = 526272, too near the f32 sums to hold. And the kernel against its
+# plain version, each output's difference over the sum of its terms'
+# magnitudes: at most 1.9e-7 there, the plain version's own chain of B adds.
+WGRAD_TOL = 3e-5
+WGRAD_PLAIN_TOL = 1e-6
 # Phase 7: against an f64 step on the CPU, the card's f32 Wasserstein step
 # may be at most this factor further than the CPU's f32 step: on the worst
 # leaf, both steps taking the ARM's branches as f64 takes them, and on the
@@ -413,9 +434,10 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     wfd.KERNEL.launches = 0
     t0 = time.time()
-    rc_main = cc_encode.main(["-i", str(src), "-o", str(out), "--workdir", str(workdir),
-                              *INTRA_ARGV, "--device", "cuda"])
-    torch.cuda.synchronize()
+    with wgrad_path("5", intra_widths()) as wgrad:
+        rc_main = cc_encode.main(["-i", str(src), "-o", str(out), "--workdir", str(workdir),
+                                  *INTRA_ARGV, "--device", "cuda"])
+        torch.cuda.synchronize()
     wall = time.time() - t0
     launches = wfd.KERNEL.launches
     peak = torch.cuda.max_memory_allocated(dev)
@@ -514,7 +536,7 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
         leaves, states = fns.step(leaves, states, draw("step", fcfg, 1, "gaussian", level, True),
                                   temp, lr, target, lmbda, refresh=False)
     profile_row = profile_steps("[5] profiled step", one_step)
-    return {"launches": launches, "step_ms": statistics.median(step_ms),
+    return {"launches": launches, "wgrad": wgrad, "step_ms": statistics.median(step_ms),
             "host_step_ms": host_ms, "step_profile": profile_row,
             "stages_s": stages["stages_s"], "peak_bytes": peak, "psnr_enc":
             float(enc["psnr_db"]), "psnr_dec": psnr_dec, "bpp": 8 * n_bytes / n_px}
@@ -582,7 +604,8 @@ def run_cli(dev, tag: str, argv: list, work: Path, kernel_path: bool = True) -> 
     every grid of the new file kernel == host C++. A common-randomness file
     decodes on the host path (bitstream/device_decode.py:prepare_batch
     refuses it, as the JAX package's device decode does): kernel_path=False
-    holds it to 0 launches instead."""
+    holds it to 0 launches instead. The encode is an intra hop one, its
+    arm_wgrad launches counted (wgrad_path)."""
     import torch
 
     from coolchic_tpu_torch import cc_encode
@@ -592,8 +615,9 @@ def run_cli(dev, tag: str, argv: list, work: Path, kernel_path: bool = True) -> 
     torch.cuda.reset_peak_memory_stats(dev)
     wfd.KERNEL.launches = 0
     t0 = time.time()
-    rc = cc_encode.main([*argv, "-o", str(out), "--workdir", str(work), "--device", "cuda"])
-    torch.cuda.synchronize()
+    with wgrad_path(tag, intra_widths()) as wgrad:
+        rc = cc_encode.main([*argv, "-o", str(out), "--workdir", str(work), "--device", "cuda"])
+        torch.cuda.synchronize()
     wall = time.time() - t0
     launches = wfd.KERNEL.launches
     peak = torch.cuda.max_memory_allocated(dev)
@@ -612,7 +636,7 @@ def run_cli(dev, tag: str, argv: list, work: Path, kernel_path: bool = True) -> 
     print(f"[{tag}] stages (EncoderMonitor, s): " + ", ".join(
         f"{k} {v:.2f}" for k, v in stages["stages_s"].items())
         + f"; peak {peak / 2**30:.2f} GiB", flush=True)
-    return {"wall_s": wall, "launches": launches, "stages_s": stages["stages_s"],
+    return {"wall_s": wall, "launches": launches, "wgrad": wgrad, "stages_s": stages["stages_s"],
             "peak_bytes": peak, "bytes": n_bytes, "psnr_db": float(detailed["psnr_db"]),
             "rate_bpp_estimate": float(detailed["rate_bpp"])}
 
@@ -1227,9 +1251,11 @@ def video_phase(dev, frame, work: Path) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         wfd.KERNEL.launches = 0
         t0 = time.time()
-        rc = cc_encode.main([*base, "--coding_idx", str(coding_idx)]
-                            + (["--no_rdoq"] if f.frame_type == "I" else []))
-        torch.cuda.synchronize()
+        with wgrad_path(f"8 {f.frame_type}", intra_widths() if f.frame_type == "I"
+                        else inter_widths()) as wgrad:
+            rc = cc_encode.main([*base, "--coding_idx", str(coding_idx)]
+                                + (["--no_rdoq"] if f.frame_type == "I" else []))
+            torch.cuda.synchronize()
         wall = time.time() - t0
         check(rc == 0, f"cc_encode {f.frame_type}{f.display_order} exited {rc}")
         if f.frame_type != "B":   # the file as it stands after I0, after P2
@@ -1240,7 +1266,7 @@ def video_phase(dev, frame, work: Path) -> dict:
         det = dict(zip(head.split("\t"), row.split("\t")))
         n_bytes = out.stat().st_size - before
         rec = {"display_index": f.display_order, "wall_s": wall,
-               "launches": wfd.KERNEL.launches, "stages_s": stages["stages_s"],
+               "launches": wfd.KERNEL.launches, "wgrad": wgrad, "stages_s": stages["stages_s"],
                "peak_bytes": torch.cuda.max_memory_allocated(dev), "bytes": n_bytes,
                "bpp": 8 * n_bytes / originals[0].n_pixels, "psnr_db": float(det["psnr_db"])}
         for k in ("alpha_mean", "beta_mean", "pred_psnr_db", "dummy_pred_psnr_db"):
@@ -1586,9 +1612,10 @@ def batch_encode_phase(dev, frames: list, work: Path, n1_step_ms: float) -> dict
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.time()
-    res = encode_images_batched(frames, cfgs, preset, paths, seed=0, verbose=False, rdoq=False,
-                                profile="tpu", monitor=monitor, device=dev)
-    torch.cuda.synchronize()
+    with wgrad_path("9a", intra_widths(), G) as wgrad:
+        res = encode_images_batched(frames, cfgs, preset, paths, seed=0, verbose=False,
+                                    rdoq=False, profile="tpu", monitor=monitor, device=dev)
+        torch.cuda.synchronize()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     h, w = frames[0].img_size
@@ -1630,7 +1657,7 @@ def batch_encode_phase(dev, frames: list, work: Path, n1_step_ms: float) -> dict
           f"step {n1_step_ms:.2f} ms: {steps['step_ms'] / n1_step_ms:.2f}x the time for "
           f"{G}x the images; peak {step_peak / 2**30:.2f} GiB", flush=True)
     return {"wall_s": wall, "images_per_s": G / wall, "stages_s": monitor.phase_time_sec,
-            "peak_bytes": peak, "decode_s": dec_s, "decode_launches": launches,
+            "peak_bytes": peak, "decode_s": dec_s, "decode_launches": launches, "wgrad": wgrad,
             "kernel_levels": k_levels[0], "psnr": psnr, "step_ms_G8": steps["step_ms"],
             "step_ms_n1_phase5": n1_step_ms, "step_peak_bytes": step_peak,
             "step_profile": steps["profile"]}
@@ -1693,8 +1720,9 @@ def wave_phase(dev, frame, p8: Path, work: Path, b_step_ms: float) -> dict:
         serial_s[f"{f.frame_type}{f.display_order}"] = time.time() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    wave_res = encode_wave_group(waves[3], cs, str(clip), str(wd), preset, inter, **kw)
-    torch.cuda.synchronize()
+    with wgrad_path("9b", inter_widths(), len(waves[3])) as wgrad:
+        wave_res = encode_wave_group(waves[3], cs, str(clip), str(wd), preset, inter, **kw)
+        torch.cuda.synchronize()
     wave_s, wave_peak = time.time() - t0, torch.cuda.max_memory_allocated(dev)
     for f, r in zip(waves[3], wave_res):
         results[f.display_order] = r
@@ -1746,7 +1774,7 @@ def wave_phase(dev, frame, p8: Path, work: Path, b_step_ms: float) -> dict:
           f"(bar {steps['bar']:.0e})", flush=True)
     check(steps["slot0_vs_alone_worst"] <= steps["bar"],
           f"wave slot 0 vs the frame alone: {steps['slot0_vs_alone_worst']:.2e}")
-    return {"serial_s": serial_s, "wave_s": wave_s, "wave_peak_bytes": wave_peak,
+    return {"serial_s": serial_s, "wave_s": wave_s, "wave_peak_bytes": wave_peak, "wgrad": wgrad,
             "stages_s": stages, "decode_s": dec_s, "decode_launches": dec_launches,
             "routes": [{k: v for k, v in r.items() if k != "items"} for r in routes],
             "grid_levels": grid_levels, "code_diff": code_diff,
@@ -1895,6 +1923,245 @@ def small_grid_phase(dev, items: list) -> dict:
                   f"{r['bound_by']})" for r in runs)
               + f"; plain {1e3 * plain_s:.0f} ms, host C++ {1e3 * host_s:.1f} ms (host clock)",
               flush=True)
+    return out
+
+
+def linear_layers(cfg, G: int) -> list:
+    """(name, G, B, C_in, C_out) of each linear layer a training step of a
+    cool-chic of config `cfg` differentiates (models/coolchic.py:
+    latent_rate): the ARM's hidden, output and stabiliser layers over every
+    latent pixel, and each IFCE arm over its grid's coarser neighbour."""
+    B, C = sum(h * w for h, w in cfg.size_per_latent), cfg.total_context_arm
+    out = [(f"hidden {k}", G, B, C, C) for k in range(cfg.n_hidden_layers_arm)]
+    out.append(("output", G, B, C, 2))
+    if cfg.linear_stabiliser_arm:
+        out.append(("stabiliser", G, B, C, 2))
+    for i, in_ft in enumerate(cfg.input_features_ifce):
+        if in_ft > 0:
+            h, w = cfg.size_per_latent[i + 1]
+            out.append((f"ifce {i}", G, h * w, in_ft, cfg.output_feature_ifce))
+    return out
+
+
+def linear_widths(*cfgs) -> set:
+    """The (C_in, C_out) of every linear layer with a gradient of `cfgs`."""
+    return {(ci, co) for cfg in cfgs for _, _, _, ci, co in linear_layers(cfg, 1)}
+
+
+def intra_widths(size: tuple = (512, 768)) -> set:
+    """An intra hop frame's at `size` (the IFCE's inputs grow with the
+    number of latent grids)."""
+    from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args, intra_operating_points
+
+    return linear_widths(coolchic_config_from_args(intra_operating_points()["hop"], size))
+
+
+def inter_widths() -> set:
+    """A P or B frame's at phases 8 and 9b: residue hop and motion mop."""
+    from coolchic_tpu_torch.utils.parsecli import (
+        coolchic_config_from_args,
+        motion_operating_points,
+        residue_operating_points,
+    )
+
+    size = (512, 768)
+    return linear_widths(
+        coolchic_config_from_args(residue_operating_points()["hop"], size, "residue", "P"),
+        coolchic_config_from_args(motion_operating_points()["mop"], size, "motion", "P"))
+
+
+@contextlib.contextmanager
+def wgrad_path(tag: str, widths: set, G: int = 0):
+    """One training path the smoke drives, with arm_wgrad's launches counted
+    from 0 and the (G, C_in, C_out) of each weight gradient seen through a
+    wrapper of models/arm.py's call. Fatal unless the kernel launched on
+    every weight gradient the path took, at least once, at every (C_in,
+    C_out) of `widths` (a route that skipped the kernel, the motion ARM's
+    say, lacks its widths) and, given G, at that batch size. Yields the
+    record, filled on exit."""
+    from coolchic_tpu_torch.models import arm
+    from coolchic_tpu_torch.ops import arm_wgrad as aw
+
+    seen: dict = {}
+    real = arm.arm_wgrad
+
+    def counted(x, dy):
+        key = (x.shape[0], x.shape[2], dy.shape[2])
+        seen[key] = seen.get(key, 0) + 1
+        return real(x, dy)
+
+    rec: dict = {}
+    aw.KERNEL.launches = 0
+    arm.arm_wgrad = counted
+    try:
+        yield rec
+    finally:
+        arm.arm_wgrad = real
+    got = {(ci, co) for _, ci, co in seen}
+    rec.update(launches=aw.KERNEL.launches, calls=sum(seen.values()),
+               widths=sorted(got), batch=sorted({g for g, _, _ in seen}))
+    print(f"[{tag}] arm_wgrad launches {rec['launches']} on {rec['calls']} weight gradients, "
+          f"(C_in, C_out) {rec['widths']}, G {rec['batch']}", flush=True)
+    check(rec["launches"] > 0 and rec["launches"] == rec["calls"],
+          f"{tag}: arm_wgrad launched {rec['launches']} times on {rec['calls']} weight gradients")
+    check(widths <= got, f"{tag}: no arm_wgrad launch at (C_in, C_out) {sorted(widths - got)}")
+    check(not G or G in rec["batch"], f"{tag}: no arm_wgrad launch at G = {G}")
+
+
+def wgrad_errors(got, x, dy, ref=None) -> dict:
+    """The largest error of a weight and bias gradient `got` (dW alone where
+    its db is None) against an f64 sum, or against `ref`, as a share of
+    the sum of its terms' magnitudes (`abs`) and of the root of the sum of
+    their squares (`rms`)."""
+    import torch
+
+    xd, dd = x.double(), dy.double()
+    parts = [(0, "gbo,gbi->goi", xd)]
+    if got[1] is not None:
+        parts.append((1, "gbo,gb->go", torch.ones_like(xd[..., 0])))
+    out = {"abs": 0.0, "rms": 0.0}
+    for k, eq, a in parts:
+        want = torch.einsum(eq, dd, a) if ref is None else ref[k].double()
+        err = (got[k].double() - want).abs()
+        out["abs"] = max(out["abs"], float((err / torch.einsum(eq, dd.abs(), a.abs())).max()))
+        out["rms"] = max(out["rms"], float((err / torch.einsum(eq, dd * dd, a * a).sqrt()).max()))
+    return out
+
+
+def tf32_rounded(t):
+    """t with each f32 rounded to the nearest TF32 (10 bits of mantissa)."""
+    import torch
+
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(t.dtype)
+
+
+def nearest_divisor(B: int, S: int) -> int:
+    """The divisor of B nearest S (the smaller on a tie)."""
+    return min((d for d in range(1, 4 * S + 1) if B % d == 0), key=lambda d: (abs(d - S), d))
+
+
+def split_bmm(x, dy, S: int):
+    """The library's split of the same sums: each image's rows as S equal
+    chunks (S divides B), one torch.bmm over the G x S chunks, their
+    partials added by .sum; the bias by .sum."""
+    G, B, ci = x.shape
+    co, c = dy.shape[2], B // S
+    dw = (dy.view(G * S, c, co).transpose(1, 2) @ x.view(G * S, c, ci)).view(G, S, co, ci)
+    return dw.sum(1), dy.sum(1)
+
+
+def arm_wgrad_phase(dev) -> dict:
+    """Phase 4c: the ARM's weight gradient (ops/arm_wgrad.py) at the layers
+    of a 512x768 training step, hop at G = 8 and lop at G = 1: each
+    layer's kernel by CUDA events (median of N_TIMED) beside its bound (X
+    and dY read once at the HBM rate), the plain version (autograd's bmm
+    and sum), the library's split of the same sums (split_bmm, at the
+    divisor of B nearest the kernel's S) and the unsplit torch.bmm. Each
+    against an f64 sum (wgrad_errors); the kernel within WGRAD_TOL and two
+    kernel runs bit for bit; the kernel against the plain version within
+    WGRAD_PLAIN_TOL; both TF32 controls (inputs rounded to TF32, and
+    torch.bmm with TF32 allowed) past WGRAD_TOL on every layer. Then one
+    training step of each, its launches counted: one a linear layer."""
+    import torch
+
+    from coolchic_tpu_torch.models.frame import FrameConfig
+    from coolchic_tpu_torch.ops import arm_wgrad as aw
+    from coolchic_tpu_torch.parallel.batch import batched_init
+    from coolchic_tpu_torch.train.params import tree_leaves
+    from coolchic_tpu_torch.train.presets import TrainerPhase
+    from coolchic_tpu_torch.train.train import PhaseFns
+    from coolchic_tpu_torch.utils.parsecli import coolchic_config_from_args, intra_operating_points
+
+    size = (512, 768)
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "bmm_ms")
+    out = {}
+    for op, G in (("hop", 8), ("lop", 1)):
+        cfg = coolchic_config_from_args(intra_operating_points()[op], size)
+        layers, tot = [], dict.fromkeys(keys, 0.0)
+        for name, g, B, ci, co in linear_layers(cfg, G):
+            gen = torch.Generator(device=dev).manual_seed(B + 100 * ci + co)
+            x = torch.randn((g, B, ci), generator=gen, device=dev)
+            dy = torch.randn((g, B, co), generator=gen, device=dev)
+            S = aw.split(g, B, aw.KERNEL.n_sm(dev))[0]
+            s_lib = nearest_divisor(B, S)
+            got = aw.arm_wgrad(x, dy)
+            again = aw.arm_wgrad(x, dy)
+            plain = aw.arm_wgrad_plain(x, dy)
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32_bmm = torch.bmm(dy.transpose(1, 2), x)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+            xt, dt = tf32_rounded(x).double(), tf32_rounded(dy).double()
+            tf32_in = torch.einsum("gbo,gbi->goi", dt, xt)
+            del xt, dt
+            err = {"kernel": wgrad_errors(got, x, dy), "plain": wgrad_errors(plain, x, dy),
+                   "library": wgrad_errors(split_bmm(x, dy, s_lib), x, dy),
+                   "tf32_inputs": wgrad_errors((tf32_in, None), x, dy),
+                   "tf32_bmm": wgrad_errors((tf32_bmm, None), x, dy)}
+            diff_plain = wgrad_errors(got, x, dy, ref=plain)
+            row = {"layer": name, "G": g, "B": B, "C_in": ci, "C_out": co, "S": S,
+                   "S_library": s_lib,
+                   "ms": cuda_ms(lambda: aw.arm_wgrad(x, dy)),
+                   "bound_ms": 1e3 * aw.bytes_read(x, dy) / HBM_BYTES_PER_S,
+                   "plain_ms": cuda_ms(lambda: aw.arm_wgrad_plain(x, dy)),
+                   "library_ms": cuda_ms(lambda: split_bmm(x, dy, s_lib)),
+                   "bmm_ms": cuda_ms(lambda: torch.bmm(dy.transpose(1, 2), x)),
+                   "repeats": all(torch.equal(a, b) for a, b in zip(got, again)),
+                   "errors": err, "kernel_minus_plain": diff_plain}
+            layers.append(row)
+            for k in keys:
+                tot[k] += row[k]
+            print(f"[4c] {op} {name} [{g}, {B}, {ci}->{co}] S {S}: kernel {row['ms']:.3f} ms "
+                  f"(bound {row['bound_ms']:.3f}), plain {row['plain_ms']:.3f}, library split "
+                  f"at S {s_lib} {row['library_ms']:.3f}, torch.bmm {row['bmm_ms']:.3f}; "
+                  "largest error over the f64 sum, as a share of sum |terms| / of "
+                  "sqrt(sum terms^2): " + ", ".join(
+                      f"{k} {v['abs']:.3g} / {v['rms']:.3g}" for k, v in err.items())
+                  + f"; kernel - plain {diff_plain['abs']:.3g} / {diff_plain['rms']:.3g}",
+                  flush=True)
+            del x, dy, got, again, plain, tf32_bmm, tf32_in
+        print(f"[4c] arm_wgrad {op} G={G} 512x768, a step's {len(layers)} layers: kernel "
+              f"{tot['ms']:.3f} ms (bound {tot['bound_ms']:.3f} ms, "
+              f"{100 * tot['bound_ms'] / tot['ms']:.1f} % of it), plain {tot['plain_ms']:.3f} "
+              f"ms, library split {tot['library_ms']:.3f} ms, torch.bmm {tot['bmm_ms']:.3f} ms",
+              flush=True)
+        for r in layers:
+            tag = f"{op} {r['layer']}"
+            check(r["repeats"], f"{tag}: two arm_wgrad runs differ")
+            check(r["errors"]["kernel"]["rms"] <= WGRAD_TOL,
+                  f"{tag}: arm_wgrad off its f64 sum by {r['errors']['kernel']['rms']:.3g} "
+                  f"(limit {WGRAD_TOL})")
+            check(r["kernel_minus_plain"]["abs"] <= WGRAD_PLAIN_TOL,
+                  f"{tag}: arm_wgrad off its plain version by "
+                  f"{r['kernel_minus_plain']['abs']:.3g} (limit {WGRAD_PLAIN_TOL})")
+            for ctl in ("tf32_inputs", "tf32_bmm"):
+                check(r["errors"][ctl]["rms"] > WGRAD_TOL,
+                      f"{tag}: the {ctl} control reads {r['errors'][ctl]['rms']:.3g}, inside "
+                      f"the limit {WGRAD_TOL} that should refuse it")
+
+        # one training step: a launch per linear layer with a gradient
+        fcfg = FrameConfig(coolchic_cfg={"residue": cfg})
+        phase = TrainerPhase(**PATH_PHASE)
+        params, opt = batched_init(fcfg, phase, G, seed=0, device=dev)
+        fns = PhaseFns(fcfg, params, phase.quantizer_noise_type, phase.quantizer_type,
+                       {"mse": 1.0}, (0.95, 0.95), (0.9, 0.999),
+                       phase.precondition_frequency_model)
+        target = torch.rand((G, 3, *size), generator=torch.Generator(device=dev).manual_seed(5),
+                            device=dev)
+        aw.KERNEL.launches = 0
+        fns.step(tree_leaves(params), opt, None, 0.3, torch.tensor(1e-2, device=dev), target,
+                 torch.full((G,), 1e-3, device=dev), refresh=False)
+        torch.cuda.synchronize()
+        step_launches = aw.KERNEL.launches
+        check(step_launches == len(layers), f"{op} G={G}: {step_launches} arm_wgrad launches "
+              f"in one training step, not {len(layers)}")
+        print(f"[4c] one {op} training step at G={G}: {step_launches} arm_wgrad launches, one "
+              "a linear layer", flush=True)
+        out[f"{op}_G{G}"] = {**tot, "layers": layers, "step_launches": step_launches}
+        del params, opt, fns, target
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2121,11 +2388,12 @@ def data_mesh_phase(dev, four: list, work: Path) -> dict:
         paths = [str(work / f"{name.replace(' ', '_')}{k}.cool") for k in range(len(imgs))]
         torch.cuda.synchronize()
         t0 = time.time()
-        res = encode_images_batched(imgs, cfgs, preset, paths, seed=0, verbose=False,
-                                    rdoq=False, profile="tpu",
-                                    monitor=EncoderMonitor(device=dev), device=dev, mesh=m)
-        torch.cuda.synchronize()
-        batch[name] = {"wall_s": time.time() - t0, "paths": paths,
+        with wgrad_path(f"10d {name}", intra_widths()) as wgrad:
+            res = encode_images_batched(imgs, cfgs, preset, paths, seed=0, verbose=False,
+                                        rdoq=False, profile="tpu",
+                                        monitor=EncoderMonitor(device=dev), device=dev, mesh=m)
+            torch.cuda.synchronize()
+        batch[name] = {"wall_s": time.time() - t0, "paths": paths, "wgrad": wgrad,
                        "psnr_db": [r["psnr_db"] for r in res],
                        "n_bytes": [r["n_bytes"] for r in res]}
     for k in range(2):
@@ -2330,9 +2598,10 @@ def multi_device_phase(dev, frames: list, work: Path) -> dict:
     for name, m in (("whole", None), ("2 shards", mesh)):
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
-        r = encode_big(dev, src, work / ("enc_whole" if m is None else "enc_sharded"), m)
-        torch.cuda.synchronize()
-        enc[name] = {"psnr_db": r["logs"].psnr_db, "n_bytes": r["n_bytes"],
+        with wgrad_path(f"10c {name}", intra_widths((H, W))) as wgrad:
+            r = encode_big(dev, src, work / ("enc_whole" if m is None else "enc_sharded"), m)
+            torch.cuda.synchronize()
+        enc[name] = {"psnr_db": r["logs"].psnr_db, "n_bytes": r["n_bytes"], "wgrad": wgrad,
                      "wall_s": time.time() - t0, "stages_s": r["monitor"].phase_time_sec,
                      "peak_bytes": torch.cuda.max_memory_allocated(dev),
                      "payload": r["payload"]}
@@ -2516,7 +2785,8 @@ def reproducibility_phase(dev, frames: list, p5: Path, p8: Path, p10: Path,
     print(f"[11a] the intra CLI again on phase 5's image: {len(again)} bytes against phase "
           f"5's {len(first)}, identical {again == first}", flush=True)
     check(again == first, "11a: the intra CLI run again wrote another file than phase 5's")
-    out["a"] = {"bytes": len(again), "launches": run["launches"], "psnr_db": run["psnr_db"]}
+    out["a"] = {"bytes": len(again), "launches": run["launches"], "psnr_db": run["psnr_db"],
+                "wgrad": run["wgrad"]}
 
     # (b) phase 8's P2 again, from I0 as phase 8 left it
     wb = work / "b"
@@ -2525,8 +2795,9 @@ def reproducibility_phase(dev, frames: list, p5: Path, p8: Path, p10: Path,
     shutil.copy(next((p8 / "w").glob("0000-decoded_*.yuv")), wb)
     shutil.copy(p8 / "i_only.cool", wb / "out.cool")
     wfd.KERNEL.launches = 0
-    rc = cc_encode.main([*video_cli_argv(clip, wb / "out.cool", wb), "--coding_idx", "1"])
-    torch.cuda.synchronize()
+    with wgrad_path("11b", inter_widths()) as wgrad_b:
+        rc = cc_encode.main([*video_cli_argv(clip, wb / "out.cool", wb), "--coding_idx", "1"])
+        torch.cuda.synchronize()
     b_launches = wfd.KERNEL.launches
     check(rc == 0, f"11b: cc_encode P2 exited {rc}")
     new, old = (wb / "out.cool").read_bytes(), (p8 / "ip_only.cool").read_bytes()
@@ -2536,7 +2807,7 @@ def reproducibility_phase(dev, frames: list, p5: Path, p8: Path, p10: Path,
           f"{b_launches} times", flush=True)
     check(new == old, "11b: P2 encoded again differs from phase 8's")
     check(b_launches > 0, "11b: the decode-back launched no wavefront_decode kernel")
-    out["b"] = {"bytes": len(new), "launches": b_launches}
+    out["b"] = {"bytes": len(new), "launches": b_launches, "wgrad": wgrad_b}
 
     # (c) slot 0 of a mixed-λ batch of 2 against slot 0 of the uniform one,
     # phase 10d's batch of the same 2 frames alone at the preset's λ
@@ -2545,10 +2816,12 @@ def reproducibility_phase(dev, frames: list, p5: Path, p8: Path, p10: Path,
     preset = PresetDebug(lmbda=1e-3, start_lr=1e-2, itr_main_training=1)
     paths = [work / f"c{k}.cool" for k in range(2)]
     t0 = time.time()
-    res = encode_images_batched(frames[:2], cfgs, preset, [str(p) for p in paths], seed=0,
-                                verbose=False, rdoq=False, profile="tpu", lmbdas=[1e-3, 4e-3],
-                                monitor=EncoderMonitor(device=dev), device=dev)
-    torch.cuda.synchronize()
+    with wgrad_path("11c", intra_widths(), 2) as wgrad_c:
+        res = encode_images_batched(frames[:2], cfgs, preset, [str(p) for p in paths], seed=0,
+                                    verbose=False, rdoq=False, profile="tpu",
+                                    lmbdas=[1e-3, 4e-3], monitor=EncoderMonitor(device=dev),
+                                    device=dev)
+        torch.cuda.synchronize()
     wall = time.time() - t0
     c_launches = [decode_back(f"[11c] slot {k}", p, dev) for k, p in enumerate(paths)]
     mixed, uniform = paths[0].read_bytes(), (p10 / "first_2_alone0.cool").read_bytes()
@@ -2558,12 +2831,14 @@ def reproducibility_phase(dev, frames: list, p5: Path, p8: Path, p10: Path,
           f"decode-backs {c_launches} launches", flush=True)
     check(mixed == uniform, "11c: slot 0 of the mixed-lambda batch differs from the uniform's")
     out["c"] = {"wall_s": wall, "bytes": [r["n_bytes"] for r in res],
-                "psnr_db": [r["psnr_db"] for r in res], "launches": c_launches}
+                "psnr_db": [r["psnr_db"] for r in res], "launches": c_launches,
+                "wgrad": wgrad_c}
 
     # (d) phase 10c's whole 2048x3072 encode again
     t0 = time.time()
-    r = encode_big(dev, p10 / "big.ppm", work / "d")
-    torch.cuda.synchronize()
+    with wgrad_path("11d", intra_widths(tuple(4 * n for n in frames[0].img_size))) as wgrad_d:
+        r = encode_big(dev, p10 / "big.ppm", work / "d")
+        torch.cuda.synchronize()
     (work / "d.cool").write_bytes(r["payload"])
     same_d = r["payload"] == (p10 / "whole.cool").read_bytes()
     d_launches = decode_back("[11d]", work / "d.cool", dev)
@@ -2571,7 +2846,8 @@ def reproducibility_phase(dev, frames: list, p5: Path, p8: Path, p10: Path,
           f"{r['logs'].psnr_db:.3f} dB, {time.time() - t0:.1f} s, identical to 10c's file "
           f"{same_d}; decode-back {d_launches} launches", flush=True)
     check(same_d, "11d: the whole 2048x3072 encode differs from 10c's")
-    out["d"] = {"bytes": r["n_bytes"], "psnr_db": r["logs"].psnr_db, "launches": d_launches}
+    out["d"] = {"bytes": r["n_bytes"], "psnr_db": r["logs"].psnr_db, "launches": d_launches,
+                "wgrad": wgrad_d}
 
     # (e) every path that trains: twice at the defaults, once in strict mode
     images = np.concatenate([np.asarray(f.data, np.float32) for f in frames])
@@ -2914,6 +3190,7 @@ def main() -> int:
     print(json.dumps({"ablation_us_per_wavefront": ablation, "level": 0, "G": batch.G,
                       "wavefronts": D0, "card": card}), flush=True)
     small = small_grid_phase(dev, items)
+    wg4c = arm_wgrad_phase(dev)
 
     # ------------------------------------------ 5-7. the intra encoder
     with tempfile.TemporaryDirectory() as wd:
@@ -2984,6 +3261,36 @@ def main() -> int:
         "work": "phase 4b: each launch of the grids of fewer than 128 streams of phase 3's "
                 "batch, and of its first image",
         **small,
+    }, {
+        "name": "arm_wgrad",
+        "route": "cuda",
+        "source": "coolchic_tpu_torch/csrc/arm_wgrad.cu",
+        "replaces": None,
+        "why": "no TPU kernel: the JAX package leaves the ARM's weight gradient to XLA; "
+               "it takes the place of autograd's batched cuBLAS GEMM",
+        "launches": rdoq["cli"]["wgrad"]["launches"],
+        "launches_by_path": {
+            **{f"one training step, {k}": v["step_launches"] for k, v in wg4c.items()},
+            "cc_encode --no_rdoq": enc["wgrad"]["launches"],
+            "cc_encode": rdoq["cli"]["wgrad"]["launches"],
+            "cc_encode --tune wasserstein": wass["cli"]["wgrad"]["launches"],
+            **{f"cc_encode {ft} frame (video)": r["wgrad"]["launches"]
+               for ft, r in video["frames"].items()},
+            "encode_images_batched of 8": batch_enc["wgrad"]["launches"],
+            "encode_wave_group (B1, B3)": wave["wgrad"]["launches"],
+            **{f"encode_one_frame 2048x3072 {k} (10c)": v["wgrad"]["launches"]
+               for k, v in multi["c"]["encode"].items()},
+            **{f"encode_images_batched {k} (10d)": v["wgrad"]["launches"]
+               for k, v in multi["d"]["encodes"].items()},
+            "cc_encode again (11a)": repro["a"]["wgrad"]["launches"],
+            "cc_encode P2 again (11b)": repro["b"]["wgrad"]["launches"],
+            "encode_images_batched mixed lambda (11c)": repro["c"]["wgrad"]["launches"],
+            "encode_one_frame 2048x3072 again (11d)": repro["d"]["wgrad"]["launches"]},
+        "matches_plain": all(r["kernel_minus_plain"]["abs"] <= WGRAD_PLAIN_TOL
+                             for v in wg4c.values() for r in v["layers"]),
+        "work": "phase 4c: the linear layers of one 512x768 training step, hop at G = 8 and "
+                "lop at G = 1 (ms, bound_ms, plain_ms, library_ms, bmm_ms: their sums)",
+        **wg4c,
     }]
     print(json.dumps({"encode_512x768_hop": enc, "card": card}), flush=True)
     print(json.dumps({"rdoq_512x768_hop": rdoq, "card": card}), flush=True)

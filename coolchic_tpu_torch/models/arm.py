@@ -27,6 +27,7 @@ import torch
 
 from coolchic_tpu_torch.core.constants import ARM_LOG_SHIFT, LOG_SCALE_MAX, LOG_SCALE_MIN
 from coolchic_tpu_torch.core.quantizer import clip
+from coolchic_tpu_torch.ops.arm_wgrad import arm_wgrad
 
 
 def _linear_init(generator: torch.Generator, in_ft: int, out_ft: int, residual: bool,
@@ -53,9 +54,38 @@ def arm_init(generator: torch.Generator, dim_arm: int, n_hidden_layers: int,
     return params
 
 
+class _Linear(torch.autograd.Function):
+    """_linear with a gradient: the same forward (torch.baddbmm), and a
+    backward that takes dX = dY . W from torch.bmm, as autograd does, and
+    the weight and bias gradient from ops/arm_wgrad.py (a CUDA kernel that
+    splits the reduction over the latent pixels across the card)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return _affine(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(dy, weight)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = arm_wgrad(x, dy)
+        return dx, dw, db
+
+
+def _affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.baddbmm(b[:, None, :], x, w.transpose(1, 2))
+
+
 def _linear(x: torch.Tensor, lay: dict) -> torch.Tensor:
     """[G, B, C_in] x [G, C_out, C_in] + [G, C_out] -> [G, B, C_out]."""
-    return torch.baddbmm(lay["bias"][:, None, :], x, lay["weight"].transpose(1, 2))
+    w, b = lay["weight"], lay["bias"]
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        return _Linear.apply(x, w, b)
+    return _affine(x, w, b)
 
 
 def arm_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
