@@ -10,8 +10,9 @@ latents re-encoded to the `tpu` profile by the port's own encoder) go
 through coolchic_tpu_torch.bitstream.decode.decode_images(device="cuda").
 
 Phases, each fatal on failure:
-  1. set-up: versions, card name and power limit, build of both native
-     libraries (g++ and nvcc, started together);
+  1. set-up: versions, card name and power limit, build of the native
+     libraries (g++ for the range coder; nvcc for the three CUDA kernels and
+     phase 4's 13 other builds of the wavefront kernel; all started together);
   2. the CUDA wavefront kernel against its plain PyTorch version and the
      host C++ decoder, bit for bit: on host-packed inputs, level 0 (512x768,
      IFCE) of one image and level 1 of two different images in one launch;
@@ -25,9 +26,8 @@ Phases, each fatal on failure:
      per level at G = 8, kernel and plain version on one level-0 grid, the
      host C++ decode of that grid as a yardstick, and the kernel's bound;
      level 0 at G = 1, 8 and 32; the ablation line: level 0 at G = 8 for
-     the team kernel at T = 4 and 8 and the first design (one thread per
-     stream, csrc/wavefront_decode_pr1.cu), each in full (bit-exact against
-     the main kernel) and with each part stubbed (-DWFD_ABLATE), in us per
+     the kernel at T = 4 and 8, each in full (bit-exact against the main
+     kernel) and with each part stubbed (-DWFD_ABLATE), in us per
      wavefront;
  4b. the small-grid decode (the grids coded on fewer than 128 streams) of
      phase 3's batch and of its first image: each launch by CUDA events,
@@ -189,9 +189,9 @@ N_TIMED = 5
 # issue at most.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
-# Timing yardsticks of phase 4: (design, team) pairs, and the parts the
-# -DWFD_ABLATE bits stub (the first design has no team: 1 thread a stream).
-DESIGNS = (("team", 4), ("team", 8), ("first", 1))
+# Timing yardsticks of phase 4: the wavefront kernel's team sizes, and the
+# parts the -DWFD_ABLATE bits stub (ABLATE_PARTS).
+TEAMS = (4, 8)
 # Phase 5: one training step's gradients, card against CPU, worst leaf's
 # |diff|_2 / |cpu|_2. Full f32 sits far below it and TF32 above it: the
 # phase checks both (the TF32 run is its control). The max-norm is printed,
@@ -228,6 +228,15 @@ PATH_PHASE = dict(lmbda=1e-3, lr=1e-2, max_itr=2, freq_valid=1, patience=100000,
 WASSERSTEIN_WEIGHTS = {"mse": 0.2, "wasserstein": 0.8 / 200}   # the CLI's --tune wasserstein
 ABLATE_PARTS = (("taps", 1), ("arm", 2), ("div", 4), ("search", 8), ("refill", 16),
                 ("barrier", 32))
+
+
+def timing_defines(dim: int, team: int, ablate: int) -> dict[str, int]:
+    """A build of the wavefront kernel that phase 4 times: team size `team`,
+    the parts `ablate` stubbed (-DWFD_ABLATE; 0 builds the kernel whole)."""
+    from coolchic_tpu_torch.ops import wavefront_decode as wfd
+
+    defines = {**wfd.kernel_defines(dim), "WFD_TEAM": team}
+    return {**defines, "WFD_ABLATE": ablate} if ablate else defines
 
 
 def fail(msg: str) -> None:
@@ -2082,7 +2091,7 @@ def arm_wgrad_phase(dev) -> dict:
             gen = torch.Generator(device=dev).manual_seed(B + 100 * ci + co)
             x = torch.randn((g, B, ci), generator=gen, device=dev)
             dy = torch.randn((g, B, co), generator=gen, device=dev)
-            S = aw.split(g, B, aw.KERNEL.n_sm(dev))[0]
+            S = aw.split(g, B, aw.n_sm(dev))[0]
             s_lib = nearest_divisor(B, S)
             got = aw.arm_wgrad(x, dy)
             again = aw.arm_wgrad(x, dy)
@@ -2914,6 +2923,7 @@ def main() -> int:
     )
     from coolchic_tpu_torch.bitstream.nncodec import decode_network
     from coolchic_tpu_torch.core.constants import non_zero_pixel_ctx_index
+    from coolchic_tpu_torch.ops import arm_wgrad as aw
     from coolchic_tpu_torch.ops import small_grid_decode as sgd
     from coolchic_tpu_torch.ops import wavefront_decode as wfd
 
@@ -2940,22 +2950,23 @@ def main() -> int:
         return time.time() - t0
 
     # every library of the run, one compiler each, all started together: the
-    # main path's kernel, then phase 4's yardsticks (the first design, the
-    # other team size, and each with one part stubbed)
-    arm_dp = wfd._kernel_dim(arm_dim)
-    variants = [(design, team, ab) for design, team in DESIGNS
+    # main path's kernels, then phase 4's yardsticks (each team size, in full
+    # and with one part stubbed)
+    main_defs = wfd.kernel_defines(arm_dim)
+    variants = [timing_defines(arm_dim, team, ab) for team in TEAMS
                 for ab in (0,) + tuple(bit for _, bit in ABLATE_PARTS)]
     t0 = time.time()
-    with ThreadPoolExecutor(len(variants) + 1) as ex:
+    with ThreadPoolExecutor(len(variants) + 3) as ex:
         f_rc = ex.submit(timed_build, rc.get_lib)
-        f_cu = {v: ex.submit(timed_build, lambda v=v: wfd.KERNEL.lib(
-            arm_dp, v[1], _design=v[0], _ablate=v[2])) for v in variants}
-        s_rc = f_rc.result()
-        s_cu = {v: f.result() for v, f in f_cu.items()}
-    print(f"[1] built rangecoder (g++) in {s_rc:.1f} s and wavefront_decode "
-          f"(nvcc, sm_90a, ARM width {arm_dim} padded to {arm_dp}, team of "
-          f"{wfd.TEAM}) in {s_cu[('team', wfd.TEAM, 0)]:.1f} s, with {len(variants) - 1} "
-          f"timing variants; {time.time() - t0:.1f} s together", flush=True)
+        f_sg = ex.submit(timed_build, sgd.KERNEL.fn, sgd.kernel_defines(arm_dim))
+        f_aw = ex.submit(timed_build, aw.KERNEL.fn, {})
+        f_cu = [ex.submit(timed_build, wfd.KERNEL.fn, v) for v in variants]
+        s_rc, s_sg, s_aw = f_rc.result(), f_sg.result(), f_aw.result()
+        s_cu = [f.result() for f in f_cu]
+    print(f"[1] built rangecoder (g++) in {s_rc:.1f} s, wavefront_decode (nvcc, sm_90a, "
+          f"{main_defs}, ARM width {arm_dim}) in {s_cu[variants.index(main_defs)]:.1f} s "
+          f"with {len(variants) - 1} timing variants, small_grid_decode in {s_sg:.1f} s and "
+          f"arm_wgrad in {s_aw:.1f} s; {time.time() - t0:.1f} s together", flush=True)
 
     # ------------------------------------------- inputs: 8 distinct bitstreams
     imgs = []
@@ -3160,32 +3171,27 @@ def main() -> int:
     print("[4] level 0 kernel by G: " + ", ".join(f"G={g} {ms:.3f} ms" for g, ms in
                                                  by_g.items()), flush=True)
 
-    # ablation on the main path's level-0 inputs (G = 8): each design in
+    # ablation on the main path's level-0 inputs (G = 8): each team size in
     # full, then with one part stubbed; a part's cost is the time it takes
     # out, in us per wavefront
     D0 = wfd.n_wavefronts(kw["h"], kw["w"])
-    taps_t = wfd.KERNEL.taps_tensor(kw["taps"], dev)
 
-    def launch_variant(design, team, ablate):
-        words, wtr, btr, stw, stb, ifce = tensors
-        out = torch.empty((words.shape[1], kw["h"], kw["w"]), dtype=torch.int32,
+    def launch_variant(team, ablate):
+        defines = timing_defines(dim, team, ablate)
+        out = torch.empty((tensors[0].shape[1], kw["h"], kw["w"]), dtype=torch.int32,
                           device=dev)
-        wfd.KERNEL.launch(words, wtr, btr, stw, stb, ifce, taps_t, out, h=kw["h"],
-                          w=kw["w"], n_spatial=len(kw["taps"]), ifce_rows=ifce.shape[1],
-                          ifce_packed=kw["ifce_packed"], dim=dim,
-                          n_hidden=len(kw["dims"]) - 1, team=team, _design=design,
-                          _ablate=ablate)
+        wfd.KERNEL.launch(defines, *wfd.launch_args(defines, *tensors, out, **kw))
         return out
 
     ablation = {}
-    for design, team in DESIGNS:
-        name = design if design == "first" else f"team{team}"
-        check(torch.equal(launch_variant(design, team, 0), ref0),
-              f"{name} design differs from the main kernel at level 0")
-        full_ms = cuda_ms(lambda: launch_variant(design, team, 0))
+    for team in TEAMS:
+        name = f"team{team}"
+        check(torch.equal(launch_variant(team, 0), ref0),
+              f"{name} differs from the main kernel at level 0")
+        full_ms = cuda_ms(lambda: launch_variant(team, 0))
         row = {"level0_g8_ms": full_ms, "full": 1e3 * full_ms / D0}
         for part, bit in ABLATE_PARTS:
-            row[part] = 1e3 * (full_ms - cuda_ms(lambda: launch_variant(design, team, bit))) / D0
+            row[part] = 1e3 * (full_ms - cuda_ms(lambda: launch_variant(team, bit))) / D0
         ablation[name] = row
     print(json.dumps({"ablation_us_per_wavefront": ablation, "level": 0, "G": batch.G,
                       "wavefronts": D0, "card": card}), flush=True)
@@ -3246,7 +3252,6 @@ def main() -> int:
         "host_cpp_ms": host_ms,
         "per_level": per_level,
         "level0_ms_by_G": by_g,
-        "first_design_level0_ms": ablation["first"]["level0_g8_ms"],
         "batch_decode_ms": batch_ms,
         "mpix_per_s": mpix / batch_ms * 1e3,
     }, {

@@ -9,7 +9,7 @@
 // wavefronts (3834 at 512x768); at each, each of the 128 streams decodes at
 // most one pixel, and the next wavefront needs its symbols. The bytes moved
 // take microseconds; the time is D times the time of one wavefront. With
-// one thread per stream (csrc/wavefront_decode_pr1.cu, the first design) a
+// one thread per stream (the first design, 2.4x as slow; PERF.md) a
 // wavefront was one warp per SM sub-partition running ~2000 dependent
 // instructions (an X.8 ARM of serial 20-term dot products, nine serial
 // evaluations of the CDF in 64-bit arithmetic, a u64 division), so every
@@ -52,7 +52,7 @@
 //     advanced by counters, not divisions.
 //   * a warp whose streams are all idle at a wavefront skips the decode.
 //
-// Kept from the first design: one __syncthreads() per wavefront, the int8
+// Kept from that first design: one __syncthreads() per wavefront, the int8
 // shared-memory ring of the last RING (>= OFFMAX + 1) wavefronts, the ARM
 // width padded with zero weights to DP (a multiple of 4, -DWFD_DP; exact),
 // u64 coder state, direct word loads (zero past the end), symbols written

@@ -26,17 +26,16 @@ launches the kernel (on a copy of X or dY that is not contiguous and
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
+import functools
 
 import torch
 
 from coolchic_tpu_torch.utils import trace
+from coolchic_tpu_torch.utils.build import CudaKernel
 
 MAX_C = 64                  # widest C_in and C_out the kernel takes
 CTAS_PER_SM = 4             # pass 1's CTAs an SM holds at once (48 KiB of shared memory each)
 MIN_CHUNK = 1024            # fewest rows a CTA of pass 1 sums, against its epilogue
-
-_CU_SRC = Path(__file__).resolve().parent.parent / "csrc" / "arm_wgrad.cu"
 
 
 def split(G: int, B: int, n_sm: int) -> tuple[int, int]:
@@ -59,50 +58,18 @@ def bytes_read(x: torch.Tensor, dy: torch.Tensor) -> int:
     return x.element_size() * (x.numel() + dy.numel())
 
 
-class _ArmWgradKernel:
-    """ctypes binding of csrc/arm_wgrad.cu, built with nvcc at first use.
-    `launches` counts calls that launched the kernel's two passes."""
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self._lib: ctypes.CDLL | None = None
-        self._n_sm: dict[int, int] = {}
-
-    def n_sm(self, device: torch.device) -> int:
-        """The card's SM count."""
-        i = device.index if device.index is not None else torch.cuda.current_device()
-        if i not in self._n_sm:
-            self._n_sm[i] = torch.cuda.get_device_properties(i).multi_processor_count
-        return self._n_sm[i]
-
-    def lib(self) -> ctypes.CDLL:
-        if self._lib is None:
-            from coolchic_tpu_torch.utils.build import build_shared_library, find_nvcc
-
-            path = build_shared_library(
-                _CU_SRC, "arm_wgrad",
-                [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                 "-O3", "-shared", "-Xcompiler", "-fPIC"], timeout=600)
-            lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.arm_wgrad_launch.argtypes = [p] * 5 + [i] * 6 + [p]
-            lib.arm_wgrad_launch.restype = i
-            self._lib = lib
-        return self._lib
-
-    def launch(self, x, dy, partial, dw, db, *, S: int, chunk: int) -> None:
-        G, B, ci = x.shape
-        co = dy.shape[2]
-        with torch.cuda.device(x.device):
-            err = self.lib().arm_wgrad_launch(
-                x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                G, B, ci, co, S, chunk, torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"arm_wgrad kernel launch failed: CUDA error {err}")
-        self.launches += 1
+# csrc/arm_wgrad.cu, one library.
+KERNEL = CudaKernel("arm_wgrad", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6)
 
 
-KERNEL = _ArmWgradKernel()
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def n_sm(device: torch.device) -> int:
+    """The card's SM count."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def arm_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -135,9 +102,9 @@ def arm_wgrad(x: torch.Tensor, dy: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     db = torch.empty((G, co), dtype=x.dtype, device=x.device)
     if B == 0:
         return dw.zero_(), db.zero_()
-    S, chunk = split(G, B, KERNEL.n_sm(x.device))
+    S, chunk = split(G, B, n_sm(x.device))
     partial = torch.empty((G, S, co, ci + 1), dtype=x.dtype, device=x.device)
-    KERNEL.launch(x, dy, partial, dw, db, S=S, chunk=chunk)
+    KERNEL.launch({}, x, dy, partial, dw, db, G, B, ci, co, S, chunk)
     trace.count("train.arm_wgrad.launches", 1)
     if trace.on():
         trace.count("train.arm_wgrad.bytes", bytes_read(x, dy))

@@ -24,7 +24,6 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,6 +31,7 @@ import torch
 from coolchic_tpu_torch.bitstream.tpu_cdf import PRECISION, SYM_MAX, SYM_MIN
 from coolchic_tpu_torch.core.constants import N_POSSIBLE_SCALE
 from coolchic_tpu_torch.ops import wavefront_decode as wfd
+from coolchic_tpu_torch.utils.build import CudaKernel
 
 # Threads per pixel in the kernel's ARM forward (4 or 8).
 TEAM = 8
@@ -113,53 +113,15 @@ def launch_shape(jobs: np.ndarray) -> tuple[int, int]:
     return threads, max(grid_bytes(int(h), int(w)) for h, w in jobs[:, :2])
 
 
-# ---------------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch.
-# ---------------------------------------------------------------------------
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_CU_SRC = _CSRC / "small_grid_decode.cu"
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# csrc/small_grid_decode.cu, one library per padded ARM width.
+KERNEL = CudaKernel("small_grid_decode", [_p, _i] + [_p] * 9 + [_i] * 8, deps=("tpu_cdf.cuh",),
+                    tags={"SGD_DP": "dp", "SGD_TEAM": "t"})
 
 
-class _SmallGridKernel:
-    """ctypes binding of csrc/small_grid_decode.cu, built with nvcc at first
-    use, one library per padded ARM width. `launches` counts kernel
-    launches (and nothing else)."""
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self._libs: dict[int, ctypes.CDLL] = {}
-
-    def lib(self, dim_padded: int) -> ctypes.CDLL:
-        if dim_padded not in self._libs:
-            from coolchic_tpu_torch.utils.build import build_shared_library, find_nvcc
-
-            path = build_shared_library(
-                _CU_SRC, f"small_grid_decode_dp{dim_padded}_t{TEAM}",
-                [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                 "-O3", "-shared", "-Xcompiler", "-fPIC", f"-DSGD_DP={dim_padded}",
-                 f"-DSGD_TEAM={TEAM}"],
-                timeout=600, deps=(_CSRC / "tpu_cdf.cuh",))
-            lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.small_grid_decode_launch.argtypes = ([p, i] + [p] * 9 + [i] * 8 + [p])
-            lib.small_grid_decode_launch.restype = i
-            self._libs[dim_padded] = lib
-        return self._libs[dim_padded]
-
-    def launch(self, jobs, streams, words, wtr, btr, stw, stb, ifce, taps_t, out, *,
-               n_spatial, n_ifce, dim, n_hidden, threads, grid_b):
-        dp = wfd._kernel_dim(dim)
-        err = self.lib(dp).small_grid_decode_launch(
-            jobs.data_ptr(), jobs.shape[0], streams.data_ptr(), words.data_ptr(),
-            wtr.data_ptr(), btr.data_ptr(), stw.data_ptr(), stb.data_ptr(), ifce.data_ptr(),
-            taps_t.data_ptr(), out.data_ptr(), n_spatial, n_ifce, dim, n_hidden, dp, TEAM,
-            threads, grid_b, torch.cuda.current_stream(words.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"small_grid_decode kernel launch failed: CUDA error {err}")
-        self.launches += 1
-
-
-KERNEL = _SmallGridKernel()
+def kernel_defines(dim: int) -> dict[str, int]:
+    """The decode path's build of the kernel for an ARM of width `dim`."""
+    return {"SGD_DP": wfd._kernel_dim(dim), "SGD_TEAM": TEAM}
 
 
 def small_grid_decode(jobs: torch.Tensor, streams: torch.Tensor, words: torch.Tensor,
@@ -194,10 +156,11 @@ def small_grid_decode(jobs: torch.Tensor, streams: torch.Tensor, words: torch.Te
     if dev.type != "cuda":
         raise ValueError(f"small_grid_decode runs on cuda or cpu, not {dev}")
     threads, grid_b = launch_shape(jobs_np)
-    KERNEL.launch(jobs, streams, words, wtr, btr, stw, stb,
-                  words if ifce is None else ifce, wfd.KERNEL.taps_tensor(taps, dev), out,
-                  n_spatial=len(taps), n_ifce=n_ifce, dim=dim, n_hidden=n_hidden,
-                  threads=threads, grid_b=grid_b)
+    defines = kernel_defines(dim)
+    KERNEL.launch(defines, jobs, jobs.shape[0], streams, words, wtr, btr, stw, stb,
+                  words if ifce is None else ifce, wfd.taps_tensor(taps, dev), out, len(taps),
+                  n_ifce, dim, n_hidden, defines["SGD_DP"], defines["SGD_TEAM"], threads,
+                  grid_b)
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,7 @@ last OFFMAX+1 wavefronts in a shared-memory ring and one barrier per
 wavefront. What bounds it on an H100 is the serial chain of D dependent
 wavefronts (3834 at 512x768); the team splits each stream's ARM and symbol
 search, so that a wavefront costs the instructions the SM issues and the
-lockstep of the barrier rather than one thread's latency. The first design,
-one thread per stream, is kept as csrc/wavefront_decode_pr1.cu for the
-timing phase of chip_smoke.py only.
+lockstep of the barrier rather than one thread's latency.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -27,7 +25,6 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,6 +45,7 @@ from coolchic_tpu_torch.core.constants import (
     N_POSSIBLE_MU,
     N_POSSIBLE_SCALE,
 )
+from coolchic_tpu_torch.utils.build import CudaKernel
 
 MASK = 9
 LANES = 128
@@ -161,85 +159,39 @@ def grid_batch_limit(h: int, w: int, ifce_rows: int, R: int, G: int,
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch.
+# The CUDA kernel: its build, its arguments, the taps on the device.
 # ---------------------------------------------------------------------------
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_CU_SRC = _CSRC / "wavefront_decode.cu"
-# The first design (one thread per stream): built only by the timing phase
-# of chip_smoke.py, as the yardstick of the team design.
-_CU_SRC_FIRST = _CSRC / "wavefront_decode_pr1.cu"
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# csrc/wavefront_decode.cu, one library per (padded ARM width, team size);
+# -DWFD_ABLATE builds (timing variants, see the .cu) are tagged _ab<bits>.
+KERNEL = CudaKernel("wavefront_decode", [_p] * 8 + [_i] * 12, deps=("tpu_cdf.cuh",),
+                    tags={"WFD_DP": "dp", "WFD_TEAM": "t", "WFD_ABLATE": "ab"})
+_TAPS: dict[tuple, torch.Tensor] = {}
 
 
-class _WavefrontKernel:
-    """ctypes binding of csrc/wavefront_decode.cu, built with nvcc at first
-    use, one library per (padded ARM width, team size). `launches` counts
-    kernel launches (and nothing else).
-
-    The private `_design` ("first": the first design) and `_ablate` (the
-    -DWFD_ABLATE bits, which stub parts and decode garbage) select timing
-    variants for chip_smoke.py; the decode path never passes them."""
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self._libs: dict[tuple, ctypes.CDLL] = {}
-        self._taps: dict[tuple, torch.Tensor] = {}
-
-    def lib(self, dim_padded: int, team: int = TEAM, *, _design: str = "team",
-            _ablate: int = 0) -> ctypes.CDLL:
-        key = (dim_padded, team, _design, _ablate)
-        if key not in self._libs:
-            from coolchic_tpu_torch.utils.build import build_shared_library, find_nvcc
-
-            if _design == "team":
-                src, stem = _CU_SRC, f"wavefront_decode_dp{dim_padded}_t{team}"
-                defs, n_int = [f"-DWFD_DP={dim_padded}", f"-DWFD_TEAM={team}"], 12
-            elif _design == "first":
-                src, stem = _CU_SRC_FIRST, f"wavefront_decode_first_dp{dim_padded}"
-                defs, n_int = [f"-DWFD_DP={dim_padded}"], 11
-            else:
-                raise ValueError(f"unknown kernel design {_design!r}")
-            if _ablate:
-                defs.append(f"-DWFD_ABLATE={_ablate}")
-                stem += f"_ab{_ablate}"
-            path = build_shared_library(
-                src, stem,
-                [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", *defs],
-                timeout=600, deps=(_CSRC / "tpu_cdf.cuh",))
-            lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.wavefront_decode_launch.argtypes = [p] * 8 + [i] * n_int + [p]
-            lib.wavefront_decode_launch.restype = i
-            self._libs[key] = lib
-        return self._libs[key]
-
-    def taps_tensor(self, taps: tuple, device: torch.device) -> torch.Tensor:
-        """The (dy, dx) taps as a flat int32 tensor on `device`, uploaded once
-        per (taps, device) so that a launch does no host-to-device copy."""
-        key = (taps, device)
-        if key not in self._taps:
-            self._taps[key] = torch.tensor(taps, dtype=torch.int32,
-                                           device=device).reshape(-1)
-        return self._taps[key]
-
-    def launch(self, words, wtr, btr, stw, stb, ifce, taps_t, out, *, h, w,
-               n_spatial, ifce_rows, ifce_packed, dim, n_hidden, team=TEAM,
-               _design="team", _ablate=0):
-        R, G, _ = words.shape
-        dp = _kernel_dim(dim)
-        team_arg = (team,) if _design == "team" else ()
-        err = self.lib(dp, team, _design=_design, _ablate=_ablate).wavefront_decode_launch(
-            words.data_ptr(), wtr.data_ptr(), btr.data_ptr(), stw.data_ptr(),
-            stb.data_ptr(), ifce.data_ptr(), taps_t.data_ptr(), out.data_ptr(),
-            h, w, G, R, n_spatial, ifce_rows, int(ifce_packed), dim, n_hidden, dp,
-            *team_arg, _ring_rows(w), torch.cuda.current_stream(words.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"wavefront_decode kernel launch failed: CUDA "
-                               f"error {err}")
-        self.launches += 1
+def kernel_defines(dim: int) -> dict[str, int]:
+    """The decode path's build of the kernel for an ARM of width `dim`."""
+    return {"WFD_DP": _kernel_dim(dim), "WFD_TEAM": TEAM}
 
 
-KERNEL = _WavefrontKernel()
+def taps_tensor(taps: tuple, device: torch.device) -> torch.Tensor:
+    """The (dy, dx) taps as a flat int32 tensor on `device`, uploaded once
+    per (taps, device) so that a launch does no host-to-device copy."""
+    key = (taps, device)
+    if key not in _TAPS:
+        _TAPS[key] = torch.tensor(taps, dtype=torch.int32, device=device).reshape(-1)
+    return _TAPS[key]
+
+
+def launch_args(defines: dict[str, int], words, wtr, btr, stw, stb, ifce, out, *,
+                h: int, w: int, taps: tuple, dims: tuple, n_ifce: int,
+                ifce_packed: bool) -> tuple:
+    """The arguments of KERNEL's build `defines` (but the stream) that decode
+    wavefront_decode's inputs into `out` [G, h, w]."""
+    R, G, _ = words.shape
+    return (words, wtr, btr, stw, stb, ifce, taps_tensor(taps, words.device), out, h, w, G,
+            R, len(taps), ifce.shape[1], int(ifce_packed), len(taps) + n_ifce, len(dims) - 1,
+            defines["WFD_DP"], defines["WFD_TEAM"], _ring_rows(w))
 
 
 def _check_inputs(words, wtr, btr, stw, stb, ifce, h, w, taps, dims, n_ifce,
@@ -269,7 +221,7 @@ def _check_inputs(words, wtr, btr, stw, stb, ifce, h, w, taps, dims, n_ifce,
             raise ValueError(f"{name} must be contiguous")
     if not MASK < w:
         raise ValueError(f"wavefront decode needs w > {MASK}, got {w}")
-    return rows, dim, n_hidden
+    return dim, n_hidden
 
 
 def wavefront_decode(words: torch.Tensor, wtr: torch.Tensor, btr: torch.Tensor,
@@ -283,8 +235,8 @@ def wavefront_decode(words: torch.Tensor, wtr: torch.Tensor, btr: torch.Tensor,
     [G, dim*2], stb [G, 2], ifce [D, rows, G, 128] (sheared IFCE context,
     rows = n_ifce, or ceil(n_ifce/2) int16 pairs when ifce_packed).
     Returns the [G, h, w] int32 symbols."""
-    rows, dim, n_hidden = _check_inputs(words, wtr, btr, stw, stb, ifce, h, w,
-                                        taps, dims, n_ifce, ifce_packed)
+    dim, n_hidden = _check_inputs(words, wtr, btr, stw, stb, ifce, h, w, taps, dims,
+                                  n_ifce, ifce_packed)
     dev = words.device
     if dev.type == "cpu":
         return wavefront_decode_plain(words, wtr, btr, stw, stb, ifce, h=h, w=w,
@@ -295,11 +247,11 @@ def wavefront_decode(words: torch.Tensor, wtr: torch.Tensor, btr: torch.Tensor,
     if not kernel_eligible(h, w, dim, n_hidden):
         raise ValueError(f"[{h}, {w}] grid with ARM width {dim} does not fit "
                          "the kernel")
-    taps_t = KERNEL.taps_tensor(taps, dev)
     out = torch.empty((words.shape[1], h, w), dtype=torch.int32, device=dev)
-    KERNEL.launch(words, wtr, btr, stw, stb, ifce, taps_t, out, h=h, w=w,
-                  n_spatial=len(taps), ifce_rows=rows,
-                  ifce_packed=ifce_packed, dim=dim, n_hidden=n_hidden)
+    defines = kernel_defines(dim)
+    KERNEL.launch(defines, *launch_args(defines, words, wtr, btr, stw, stb, ifce, out, h=h,
+                                        w=w, taps=taps, dims=dims, n_ifce=n_ifce,
+                                        ifce_packed=ifce_packed))
     return out
 
 
