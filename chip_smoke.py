@@ -51,8 +51,12 @@ Phases, each fatal on failure:
      within 1e-5 relative, each leaf's gradient within 1e-3 in L2 norm
      relative to the CPU's), and a TF32 run of the step on the card that
      the tolerance must reject; ms per training step (CUDA events, median
-     over a window of 20 main-phase steps); seconds per stage, peak
-     memory, PSNR and bpp;
+     over a window of 20 main-phase steps); SOAP's update as a CUDA graph
+     (soap_graph_phase): host ms a step with the update replayed and
+     eager (soap_step_all), in turns, the replays equal to the steps
+     without a refresh, one replay equal to the eager update bit for bit,
+     and the profiler's kernel records a step with and without the graph;
+     seconds per stage, peak memory, PSNR and bpp;
   6. RDOQ on the card: (a) rdoq_coolchic on phase 5's checkpoint
      (NN-quantized without RDOQ): seconds per (module, wb) sweep (the card
      synchronised), probes, lanes, host syncs, scalars adjusted, rollbacks,
@@ -539,16 +543,108 @@ def encode_phase(dev, target_frame, workdir: Path) -> dict:
           f"{statistics.median(step_ms):.2f} ms median of 20 (CUDA events), host "
           f"{host_ms:.2f} ms per step over 21", flush=True)
 
-    # what the card does in a step
-    def one_step():
+    # SOAP's update replayed as a CUDA graph (the step above) against the
+    # same step with the update eager (soap_step_all), and a replay against
+    # the eager update on the same inputs, bit for bit
+    graph = soap_graph_phase(fns, leaves, states, lambda: draw("step", fcfg, 1, "gaussian",
+                                                                level, True),
+                             temp, lr, target, lmbda)
+    leaves, states = graph.pop("state")
+
+    # what the card does in a step, the update replayed and eager: the
+    # card-alone trace holds the graph's kernels if both count alike
+    def one_step(eager=False):
         nonlocal leaves, states
-        leaves, states = fns.step(leaves, states, draw("step", fcfg, 1, "gaussian", level, True),
-                                  temp, lr, target, lmbda, refresh=False)
+        noise = draw("step", fcfg, 1, "gaussian", level, True)
+        if eager:
+            grads = fns.grads(leaves, noise, temp, target, lmbda)
+            leaves, states = fns.update.eager(grads, states, leaves, lr, refresh=False)
+        else:
+            leaves, states = fns.step(leaves, states, noise, temp, lr, target, lmbda,
+                                      refresh=False)
     profile_row = profile_steps("[5] profiled step", one_step)
+    graph["profile_eager"] = profile_steps("[5] profiled step, SOAP's update eager",
+                                           lambda: one_step(eager=True))
+    print(f"[5] kernel records a step: {profile_row['kernels_per_step']:.1f} with the graph, "
+          f"{graph['profile_eager']['kernels_per_step']:.1f} eager", flush=True)
     return {"launches": launches, "wgrad": wgrad, "step_ms": statistics.median(step_ms),
-            "host_step_ms": host_ms, "step_profile": profile_row,
+            "host_step_ms": host_ms, "step_profile": profile_row, "soap_graph": graph,
             "stages_s": stages["stages_s"], "peak_bytes": peak, "psnr_enc":
             float(enc["psnr_db"]), "psnr_dec": psnr_dec, "bpp": 8 * n_bytes / n_px}
+
+
+def soap_graph_phase(fns, leaves, states, noise, temp, lr, target, lmbda,
+                     n: int = 20, rounds: int = 2) -> dict:
+    """Phase 5's SOAP update: host ms per training step with the update
+    replayed as a CUDA graph (fns.step) and eager (fns.grads, then
+    soap_step_all), `rounds` blocks of n steps each, in turns; the replays
+    must be the blocks' steps without a refresh, and one replay must equal
+    the eager update on the same inputs bit for bit. `fns` has run a
+    refresh period or more, so that its graphs are captured. Returns the
+    figures and, under "state", the (leaves, states) it ends on."""
+    import torch
+
+    from coolchic_tpu_torch.train.soap import _state_tensors
+    from coolchic_tpu_torch.utils import trace
+
+    state = [leaves, states]
+    n_steps = [0, 0]          # steps, and the graph's blocks' steps without a refresh
+
+    def block(eager: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            n_steps[0] += 1
+            refresh = n_steps[0] % fns.pf == 0
+            n_steps[1] += not (eager or refresh)
+            if eager:
+                grads = fns.grads(state[0], noise(), temp, target, lmbda)
+                state[:] = fns.update.eager(grads, state[1], state[0], lr, refresh=refresh)
+            else:
+                state[:] = fns.step(state[0], state[1], noise(), temp, lr, target, lmbda,
+                                    refresh=refresh)
+        torch.cuda.synchronize()
+        return 1e3 * (time.time() - t0) / n
+
+    ms = {"graph": [], "eager": []}
+    with trace.collect() as rec:
+        for _ in range(rounds):
+            ms["graph"].append(block(False))
+            ms["eager"].append(block(True))
+    non_refresh = n_steps[1]
+    c = rec.counters
+    replays, captures = c.get("train.soap.graph_replays", 0), c.get("train.soap.captures", 0)
+    captured = sum(g is not None for g in fns.update.graphs.values())
+    print(f"[5] SOAP's update as a CUDA graph: host {statistics.median(ms['graph']):.2f} ms a "
+          f"step (blocks {', '.join(f'{x:.2f}' for x in ms['graph'])}) against "
+          f"{statistics.median(ms['eager']):.2f} eager ({', '.join(f'{x:.2f}' for x in ms['eager'])})"
+          f"; {replays} replays in {rounds * n} steps of which {non_refresh} without a "
+          f"refresh, {captures} captures here, {captured} graphs captured in all "
+          f"({len(fns.update.graphs)} keys)", flush=True)
+    check(replays == non_refresh and captures == 0,
+          f"5: {replays} replays and {captures} captures in blocks with {non_refresh} steps "
+          f"without a refresh")
+
+    # a replay against the eager update on the same inputs
+    leaves, states = state
+    grads = fns.grads(leaves, noise(), temp, target, lmbda)
+    want = fns.update.eager(grads, states, leaves, lr, refresh=False)
+    with trace.collect() as rec:
+        got = fns.update(grads, states, leaves, lr, refresh=False)
+    check(rec.counters == {"train.soap.graph_replays": 1},
+          f"5: the update did not replay its graph ({rec.counters})")
+    n_same = n_all = 0
+    for a, b in zip(got[0] + [t for s in got[1] for t in _state_tensors(s)],
+                    want[0] + [t for s in want[1] for t in _state_tensors(s)]):
+        n_all += 1
+        n_same += int(torch.equal(a, b))
+    print(f"[5] a replayed update against the eager one: {n_same} of {n_all} tensors equal "
+          f"bit for bit", flush=True)
+    check(n_same == n_all and len(got[0]) == len(want[0]),
+          f"5: a replayed update differs from the eager one ({n_all - n_same} tensors)")
+    return {"host_ms_graph": ms["graph"], "host_ms_eager": ms["eager"], "replays": replays,
+            "steps": rounds * n, "non_refresh": non_refresh, "graphs_captured": captured,
+            "tensors_equal": n_same, "state": got}
 
 
 def bitstream_objective(params, fcfg, side, frame, lmbda, dev, path: Path) -> dict:

@@ -17,15 +17,23 @@ Every tensor carries a leading batch axis of G images: a parameter leaf is
 [G, *shape], its GG and Q matrices [G, d, d], its step [G]. One state dict
 per leaf: {"step", "exp_avg", "exp_avg_sq", "GG": [per dim], "Q": [per
 dim]}, with None for a dimension that is not preconditioned.
+
+soap_step_all is one training step's update of every leaf (the weight
+group's clip, then a step a leaf); SoapUpdate runs it for a trainer, on a
+card as the replay of a CUDA graph on the steps without a refresh.
 """
 
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
+
+from coolchic_tpu_torch.train.params import FROZEN, WEIGHT
+from coolchic_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -197,3 +205,195 @@ def soap_step_leaf(grad: torch.Tensor, state: dict, param: torch.Tensor,
 
     return new_param, {"step": step, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq,
                        "GG": gg, "Q": new_qs}
+
+
+def soap_step_all(grads: list, states: list, params: list, lr: torch.Tensor, groups: list,
+                  hp_weight: SoapHyperParams, hp_latent: SoapHyperParams, *,
+                  refresh: bool) -> tuple[list, list]:
+    """One training step's update of every leaf: the global-norm clip of the
+    WEIGHT group's gradients at 0.1, per image (reference train.py:228),
+    then soap_step_leaf a leaf: SOAP under hp_weight on the weights (the
+    eigenbasis refresh when `refresh`), Adam under hp_latent on the
+    latents. A FROZEN leaf, or one with no state, passes through as it is.
+    Returns (new_params, new_states), a leaf each."""
+    with trace.span("train.clip"):
+        sq = sum(torch.square(g).flatten(1).sum(dim=1)
+                 for g, grp in zip(grads, groups) if grp == WEIGHT)
+        norm = torch.sqrt(sq)
+        clip = torch.minimum(torch.ones_like(norm), 0.1 / (norm + 1e-6))
+    new_p, new_s = [], []
+    with trace.span("train.soap.refresh") if refresh else trace.OFF:
+        for p, g, s, grp in zip(params, grads, states, groups):
+            if grp == FROZEN or s is None:
+                new_p.append(p)
+                new_s.append(s)
+                continue
+            if grp == WEIGHT:
+                g = g * clip.reshape((-1,) + (1,) * (g.dim() - 1))
+                p2, s2 = soap_step_leaf(g, s, p, lr, hp_weight, refresh=refresh)
+            else:
+                p2, s2 = soap_step_leaf(g, s, p, lr, hp_latent, refresh=False)
+            new_p.append(p2.detach())
+            new_s.append(s2)
+    return new_p, new_s
+
+
+def _state_tensors(s) -> list:
+    """A leaf's state as a flat list of its tensors (none for no state)."""
+    if s is None:
+        return []
+    return [s["step"], s["exp_avg"], s["exp_avg_sq"],
+            *(x for x in s["GG"] if x is not None), *(x for x in s["Q"] if x is not None)]
+
+
+def _state_like(s, it):
+    """The state shaped like `s` (its dimensions without a GG/Q matrix kept
+    None) from the next tensors of the iterator `it`."""
+    if s is None:
+        return None
+    return {"step": next(it), "exp_avg": next(it), "exp_avg_sq": next(it),
+            "GG": [None if x is None else next(it) for x in s["GG"]],
+            "Q": [None if x is None else next(it) for x in s["Q"]]}
+
+
+_NEW = object()     # SoapUpdate.graphs' answer for a key not seen yet
+_SIZE, _STRIDE, _DTYPE = torch.Tensor.size, torch.Tensor.stride, operator.attrgetter("dtype")
+
+
+def _by_dtype(tensors: list, where: list) -> list:
+    """[(tensors, their positions)] a dtype: multi-tensor copies take one
+    dtype a list (a list that mixes them falls back to a copy a tensor)."""
+    groups: dict = {}
+    for t, k in zip(tensors, where):
+        ts, ks = groups.setdefault(t.dtype, ([], []))
+        ts.append(t)
+        ks.append(k)
+    return list(groups.values())
+
+
+class _Captured:
+    """One CUDA graph of soap_step_all and the static tensors it reads and
+    writes: the inputs flattened (gradients, parameters, states of the
+    leaves that train) and lr; the outputs flattened (parameters, states)
+    and the output states' shape; for each output the input it is (a state
+    passed through, such as Q on a step without a refresh), or -1; the
+    static inputs and the outputs to copy out, a dtype each, with their
+    positions."""
+
+    __slots__ = ("graph", "ins", "lr", "outs", "out_states", "alias", "copy_in", "copy_out")
+
+    def __init__(self, graph, ins, lr, outs, out_states, alias):
+        self.graph, self.ins, self.lr = graph, ins, lr
+        self.outs, self.out_states, self.alias = outs, out_states, alias
+        self.copy_in = _by_dtype(ins, range(len(ins)))
+        self.copy_out = _by_dtype([t for t, a in zip(outs, alias) if a < 0],
+                                  [k for k, a in enumerate(alias) if a < 0])
+
+
+class SoapUpdate:
+    """soap_step_all for one trainer (its leaves' groups and both groups'
+    hyper-parameters), as the trainer calls it each step.
+
+    On the CPU, and on a step with the eigenbasis refresh (its QR stays
+    eager), it calls soap_step_all. On a card, a step without a refresh
+    replays a CUDA graph of soap_step_all: one launch in place of about
+    36 small kernels a leaf, which the host would dispatch one by one. The
+    graph reads static copies of the step's inputs (copied in with
+    multi-tensor copies) and its outputs are copied out into fresh tensors,
+    so that no tensor returned to the caller is written by a later replay;
+    a state passed through (Q) comes back as the caller's own tensor, as
+    from soap_step_all. Graphs are kept by device and by the inputs'
+    shapes, strides and dtypes (the strides, so that a product reads its
+    operands laid out as the eager step would); the first step of a new
+    key runs soap_step_all eagerly on a side stream (its warm-up, as
+    torch.cuda.graphs asks), the next one captures. The graphs' memory
+    pools go with the instance.
+
+    Counters: train.soap.eager_steps, train.soap.captures and
+    train.soap.graph_replays (a capture's step is a replay too)."""
+
+    def __init__(self, groups: list, hp_weight: SoapHyperParams, hp_latent: SoapHyperParams):
+        self.groups = list(groups)
+        self.hp_weight, self.hp_latent = hp_weight, hp_latent
+        self.graphs: dict = {}      # key -> None once warmed up, then its _Captured
+        self._streams: dict = {}    # device -> the side stream of warm-ups and captures
+
+    def eager(self, grads: list, states: list, params: list, lr: torch.Tensor, *,
+              refresh: bool) -> tuple[list, list]:
+        return soap_step_all(grads, states, params, lr, self.groups, self.hp_weight,
+                             self.hp_latent, refresh=refresh)
+
+    def __call__(self, grads: list, states: list, params: list, lr: torch.Tensor, *,
+                 refresh: bool) -> tuple[list, list]:
+        live = [i for i, grp in enumerate(self.groups) if grp != FROZEN]
+        dev = params[live[0]].device if live else None
+        if refresh or dev is None or dev.type != "cuda":
+            trace.count("train.soap.eager_steps", 1)
+            return self.eager(grads, states, params, lr, refresh=refresh)
+        flat = ([grads[i] for i in live] + [params[i] for i in live]
+                + [t for i in live for t in _state_tensors(states[i])])
+        key = (dev, lr.shape, lr.dtype, tuple(states[i] is None for i in live),
+               tuple(map(_SIZE, flat)), tuple(map(_STRIDE, flat)), tuple(map(_DTYPE, flat)))
+        with torch.cuda.device(dev):
+            c = self.graphs.get(key, _NEW)
+            if c is _NEW:
+                self.graphs[key] = None
+                trace.count("train.soap.eager_steps", 1)
+                return self._warm_up(dev, grads, states, params, lr)
+            if c is None:
+                c = self.graphs[key] = self._capture(dev, live, states, flat, lr)
+                trace.count("train.soap.captures", 1)
+            trace.count("train.soap.graph_replays", 1)
+            return self._replay(c, live, states, params, flat, lr)
+
+    def _stream(self, dev: torch.device) -> torch.cuda.Stream:
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+        return self._streams[dev]
+
+    def _warm_up(self, dev, grads, states, params, lr) -> tuple[list, list]:
+        """The eager step on the side stream, ordered after the caller's
+        work and before what the caller queues next."""
+        side, cur = self._stream(dev), torch.cuda.current_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.eager(grads, states, params, lr, refresh=False)
+        cur.wait_stream(side)
+        return out
+
+    def _run(self, live: list, states: list, ins: list, lr) -> tuple[list, list]:
+        """soap_step_all over the leaves that train, from their flat inputs."""
+        n = len(live)
+        it = iter(ins[2 * n:])
+        return soap_step_all(ins[:n], [_state_like(states[i], it) for i in live], ins[n:2 * n],
+                             lr, [self.groups[i] for i in live], self.hp_weight,
+                             self.hp_latent, refresh=False)
+
+    def _capture(self, dev, live, states, flat, lr) -> _Captured:
+        ins = [torch.empty_like(t) for t in flat]
+        lr_in = torch.empty_like(lr, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream(dev)):
+            new_p, new_s = self._run(live, states, ins, lr_in)
+        outs = new_p + [t for s in new_s for t in _state_tensors(s)]
+        where = {id(t): k for k, t in enumerate(ins)}
+        return _Captured(graph, ins, lr_in, outs, new_s, [where.get(id(t), -1) for t in outs])
+
+    def _replay(self, c: _Captured, live, states, params, flat, lr) -> tuple[list, list]:
+        for dst, where in c.copy_in:
+            torch._foreach_copy_(dst, [flat[k] for k in where])
+        c.lr.copy_(lr)
+        c.graph.replay()
+        outs = [flat[a] if a >= 0 else None for a in c.alias]
+        for src, where in c.copy_out:
+            # fresh tensors, laid out as the static ones: x * 1 is x exactly,
+            # and one multi-tensor op allocates them all in C++
+            for k, t in zip(where, torch._foreach_mul(src, 1)):
+                outs[k] = t
+        outs = iter(outs)
+        new_p, new_s = list(params), list(states)
+        for i in live:
+            new_p[i] = next(outs)
+        for i, s in zip(live, c.out_states):
+            new_s[i] = _state_like(s, outs)
+        return new_p, new_s

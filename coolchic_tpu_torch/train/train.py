@@ -6,7 +6,10 @@ of the weight group at 0.1, one SOAP step per leaf (network weights) or
 Adam (latents), and the QR eigenbasis refresh on every
 `precondition_frequency`-th step of a validation window. Everything is
 batched over a leading axis of G images (parallel/encode_batch.py drives
-the windows); the host reads losses only at the validation points.
+the windows); the host reads losses only at the validation points. The
+clip and the per-leaf steps are one function (train/soap.py:soap_step_all);
+on a card, a step without the refresh replays a CUDA graph of it
+(soap.SoapUpdate, one per PhaseFns).
 
 The serial trainer `train()` runs one phase of one image (G = 1) with the
 JAX package's patience rule (stop, or reload the best model when the lr is
@@ -45,8 +48,10 @@ from coolchic_tpu_torch.train.params import (
     tree_map,
     tree_unflatten,
 )
-from coolchic_tpu_torch.train.soap import (
+# soap_step_leaf stays a name of this module: portbench's traced runs wrap it
+from coolchic_tpu_torch.train.soap import (  # noqa: F401
     SoapHyperParams,
+    SoapUpdate,
     soap_init_from_grad_leaf,
     soap_init_leaf,
     soap_step_leaf,
@@ -202,6 +207,7 @@ class PhaseFns:
         self.pf = max(precondition_frequency_model, 1)
         self.need_noise = (quantizer_type in ("none", "softround")
                            and quantizer_noise_type != "none")
+        self.update = SoapUpdate(self.groups, self.hp_weight, self.hp_latent)
 
     def wasserstein_fn(self, target):
         """The Wasserstein term's fn for `target`, its VGG features computed
@@ -254,29 +260,8 @@ class PhaseFns:
     def step(self, leaves: list, states: list, noise, temp, lr: torch.Tensor,
              target, lmbda, refs=None, *, refresh: bool) -> tuple[list, list]:
         grads = self.grads(leaves, noise, temp, target, lmbda, refs)
-        # Global-norm clip of the WEIGHT group at 0.1, per image
-        # (reference train.py:228).
-        with trace.span("train.clip"):
-            sq = sum(torch.square(g).flatten(1).sum(dim=1)
-                     for g, grp in zip(grads, self.groups) if grp == WEIGHT)
-            norm = torch.sqrt(sq)
-            clip = torch.minimum(torch.ones_like(norm), 0.1 / (norm + 1e-6))
-        new_p, new_s = [], []
-        with trace.span("train.soap"), (trace.span("train.soap.refresh") if refresh
-                                        else trace.OFF):
-            for p, g, s, grp in zip(leaves, grads, states, self.groups):
-                if grp == FROZEN or s is None:
-                    new_p.append(p)
-                    new_s.append(s)
-                    continue
-                if grp == WEIGHT:
-                    g = g * clip.reshape((-1,) + (1,) * (g.dim() - 1))
-                    p2, s2 = soap_step_leaf(g, s, p, lr, self.hp_weight, refresh=refresh)
-                else:
-                    p2, s2 = soap_step_leaf(g, s, p, lr, self.hp_latent, refresh=False)
-                new_p.append(p2.detach())
-                new_s.append(s2)
-        return new_p, new_s
+        with trace.span("train.soap"):
+            return self.update(grads, states, leaves, lr, refresh=refresh)
 
     def window(self, leaves: list, states: list, draw, n_steps: int, temp,
                lr: torch.Tensor, target, lmbda, refs=None) -> tuple[list, list]:

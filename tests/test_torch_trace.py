@@ -64,7 +64,7 @@ STEP_PARENT = {
     "train.grads": "train.step",
     "train.forward": "train.grads",
     "train.backward": "train.grads",
-    "train.clip": "train.step",
+    "train.clip": "train.soap",
     "train.soap": "train.step",
     "train.soap.refresh": "train.soap",
 }
